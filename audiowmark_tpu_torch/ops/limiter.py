@@ -1,0 +1,75 @@
+"""Block-wise look-ahead soft limiter with the reference's streaming state.
+
+Port of audiowmark_tpu/ops/limiter.py's StreamingLimiter (host numpy; the
+whole-file limiter of the add path lives in ops/frames.limiter_apply).
+Reference behavior (src/limiter.cc): 1-second blocks; per block b the scale
+ramps linearly from ceiling/max(M[b-1], M[b]) to ceiling/max(M[b], M[b+1]),
+where M[b] = max(|x| over block b, ceiling); one block of latency.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+class StreamingLimiter:
+    """Stateful streaming limiter with the reference's exact block protocol
+    (process/skip/flush), vectorized per call."""
+
+    def __init__(self, n_channels: int, sample_rate: int,
+                 block_size_ms: float = 1000, ceiling: float = 0.99):
+        self.n_channels = n_channels
+        self.block_size = sample_rate * int(block_size_ms) // 1000
+        self.ceiling = float(ceiling)
+        self.buffer = np.zeros(0, dtype=np.float32)
+        self.block_max_last = 0.0
+
+    def process(self, samples: np.ndarray) -> np.ndarray:
+        self.buffer = np.concatenate([self.buffer,
+                                      np.asarray(samples, np.float32)])
+        vpb = self.block_size * self.n_channels
+        buffered_blocks = self.buffer.size // vpb
+        if buffered_blocks < 2:
+            return np.zeros(0, dtype=np.float32)
+        todo = buffered_blocks - 1
+        x = self.buffer[: (todo + 1) * vpb].reshape(todo + 1, vpb)
+        maxes = np.maximum(np.max(np.abs(x), axis=1), self.ceiling)
+        prev = np.concatenate([[max(self.block_max_last, self.ceiling)],
+                               maxes[:-1]])
+        out = np.empty(todo * vpb, dtype=np.float32)
+        i = np.arange(self.block_size, dtype=np.float32)
+        for b in range(todo):
+            start = self.ceiling / max(prev[b], maxes[b])
+            end = self.ceiling / max(maxes[b], maxes[b + 1])
+            step = (end - start) / self.block_size
+            scale = (start + i * step).astype(np.float32)
+            blk = x[b].reshape(self.block_size, self.n_channels)
+            out[b * vpb:(b + 1) * vpb] = (blk * scale[:, None]).reshape(-1)
+        self.block_max_last = maxes[todo - 1]
+        self.buffer = self.buffer[todo * vpb:].copy()
+        return out
+
+    def skip(self, zeros: int) -> int:
+        """Fast path for a zero lead-in (reference: src/limiter.cc:69-88)."""
+        vpb = self.block_size * self.n_channels
+        buffer_size = self.buffer.size + zeros * self.n_channels
+        buffered_blocks = buffer_size // vpb
+        if buffered_blocks < 2:
+            self.buffer = np.zeros(buffer_size, dtype=np.float32)
+            return 0
+        todo = buffered_blocks - 1
+        self.buffer = np.zeros(buffer_size - todo * vpb, dtype=np.float32)
+        return todo * self.block_size
+
+    def flush(self) -> np.ndarray:
+        out = []
+        todo = self.buffer.size
+        zblock = np.zeros(1024 * self.n_channels, dtype=np.float32)
+        while todo > 0:
+            block = self.process(zblock)
+            if block.size > todo:
+                block = block[:todo]
+            out.append(block)
+            todo -= block.size
+        return (np.concatenate(out) if out
+                else np.zeros(0, dtype=np.float32))
