@@ -1,8 +1,8 @@
 """audiowmark_tpu_torch — the PyTorch/CUDA port of audiowmark_tpu.
 
-The CLI's main path, `add` and then `get`/`cmp` on 44.1 kHz audio, in
-PyTorch on one CUDA card, with the Viterbi trellis as a hand-written CUDA
-kernel (csrc/viterbi_acs.cu).  The JAX package `audiowmark_tpu` stays the
+The CLI's `add` and `get`/`cmp` at any sample rate and any length (speed
+detection still raises), in PyTorch on one CUDA card, with the Viterbi
+trellis as a hand-written CUDA kernel (csrc/viterbi_acs.cu).  The JAX package `audiowmark_tpu` stays the
 reference; the port reuses only its jax-free host modules (params, crypto,
 io, utils) and imports no jax.
 

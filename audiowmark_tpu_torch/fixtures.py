@@ -5,6 +5,9 @@
 on the data_up_down stream, written as a wav file.  The same key, length and
 rate give the same bytes from either package.
 
+`long_noise` is seeded uniform stereo noise for long fixtures, where the
+AES-CTR keystream in numpy would take minutes.
+
 `acs_check_metrics` gives branch metrics that hold the Viterbi trellis's
 hard cases, for checking kernel K1 against its plain version.
 """
@@ -62,3 +65,12 @@ def gen_noise(key: Key, out_file: str, seconds: float, rate: int,
     d = u.astype(np.float64) / np.float64(2.0 ** 64)
     noise = (d * 2 - 1).astype(np.float32)
     WavData(noise, channels, rate, bits).save(out_file)
+
+
+def long_noise(seed: int, out_file: str, seconds: float, rate: int):
+    """16-bit stereo noise, uniform in [-1, 1), from
+    np.random.default_rng(seed), written as a wav file."""
+    n = int(rate * seconds) * 2
+    rng = np.random.default_rng(seed)
+    noise = rng.random(n, dtype=np.float32) * np.float32(2) - np.float32(1)
+    WavData(noise, 2, rate, 16).save(out_file)

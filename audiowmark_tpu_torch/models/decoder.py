@@ -1,20 +1,23 @@
 """Watermark decoder: block decoder, clip decoder, soft-bit normalisation.
 
 Port of audiowmark_tpu/models/decoder.py (reference: src/wmget.cc): sync
-candidates from the sync finder, each carrying the raw soft bits the
-device search extracted at its refined start, keyed de-interleaving, A+B
-joining, the greedy "all" block-chain merge, and the clip decoder on
-zero-padded ~2-block windows at the stream's start and end.  All decodes
-of one get share ONE batched trellis launch (codec/convcode.py ->
-kernel K1).
+candidates from the sync finder, with the raw soft bits the fused device
+search extracted at each refined start (or, after the staged or tiled
+search and --test-no-sync, the raws of one batched extraction), keyed
+de-interleaving, A+B joining, the greedy "all" block-chain merge, and the
+clip decoder on zero-padded ~2-block windows at the stream's start and
+end.  Each decoder uploads its audio once, for the search and the
+extraction.  All decodes of one get share ONE batched trellis launch
+(codec/convcode.py -> kernel K1).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import numpy as np
+import torch
 
 from audiowmark_tpu.crypto.keys import Key
 from audiowmark_tpu.params import Params
@@ -22,20 +25,47 @@ from audiowmark_tpu.params import Params
 from ..codec import ConvBlockType, code_size
 from ..codec.convcode import conv_decode_soft_mixed
 from ..codec.dispatch import code_decode_soft_batch
-from ..device import DeviceLike
+from ..device import DeviceLike, resolve
+from ..ops.extract import block_raw, layout
 from ..ops.frames import FRAME
-from ..tables import KeyTables, get_key_tables, randomize_bit_order
+from ..tables import (KeyTables, get_key_tables, randomize_bit_order,
+                      tables_to_device)
 from . import syncfinder
 from .resultset import PatternType, ResultSet
 from .syncfinder import SyncMode
 
 
+def _block_raw_batch(x: torch.Tensor, n_channels: int, indices: List[int],
+                     tables: KeyTables) -> dict:
+    """Raw (pre-interleave) soft bits for each candidate start index of x
+    ((n*C,) f32 on the device), in one batched extraction; indices repeat
+    at most once, and blocks that read past the end are dropped (the
+    reference skips them).  Returns {index: raw (n_coded,)}."""
+    count = tables.frames_per_block
+    n_sample_frames = x.shape[0] // n_channels
+    valid = [i for i in dict.fromkeys(indices)
+             if i + count * FRAME <= n_sample_frames]
+    if not valid:
+        return {}
+    lay_frame, lay_up, lay_dn, group = layout(tables, x.device)
+    raws = block_raw(
+        x.reshape(-1, n_channels), torch.tensor(valid, device=x.device),
+        tables_to_device(tables, x.device)["analysis_window"], lay_frame,
+        lay_up, lay_dn, count, bool(Params.mix), group,
+        Params.frames_per_bit).cpu().numpy()
+    return {i: raws[k] for k, i in enumerate(valid)}
+
+
 def _raw_map_from_scores(samples: np.ndarray, n_channels: int, scores,
-                         tables: KeyTables, clip: bool) -> dict:
-    """{index: raw} from the raws the search extracted at the refined
+                         tables: KeyTables, clip: bool) -> Optional[dict]:
+    """{index: raw} from the raws the fused search extracted at the refined
     positions (Score.raw/raw2), dropping blocks that read past the end
     (index + frames_per_block*FRAME <= frames, as the reference skips
-    them)."""
+    them); None when any score lacks them (the staged or tiled search,
+    --test-no-sync): the caller then extracts in one batch."""
+    if not scores or any(ss.raw is None or (clip and ss.raw2 is None)
+                         for ss in scores):
+        return None
     nsf = samples.size // n_channels
     cnt = tables.frames_per_block * FRAME
     raw_map = {}
@@ -118,8 +148,9 @@ class BlockDecoder:
             jobs: _DecodeJobs):
         """Search and queue this chunk's decodes on `jobs`; the caller
         flushes (one trellis launch covers the block and clip decodes)."""
+        x = syncfinder.upload(wav_data, resolve(self.device))
         self.key_results = syncfinder.search(key_list, wav_data,
-                                             SyncMode.BLOCK, self.device)
+                                             SyncMode.BLOCK, self.device, x)
         n_channels = wav_data.n_channels
         samples = wav_data.samples
 
@@ -131,6 +162,10 @@ class BlockDecoder:
             raw_map = _raw_map_from_scores(
                 samples, n_channels, key_result.sync_scores, tables,
                 clip=False)
+            if raw_map is None:
+                raw_map = _block_raw_batch(
+                    x, n_channels,
+                    [ss.index for ss in key_result.sync_scores], tables)
             for sync_score in key_result.sync_scores:
                 raw_bits = raw_map.get(sync_score.index)
                 if raw_bits is None:
@@ -283,8 +318,9 @@ class ClipDecoder:
 
     def _run_padded(self, key_list, wav_data, result_set, time_offset_sec,
                     jobs: _DecodeJobs):
+        x = syncfinder.upload(wav_data, resolve(self.device))
         key_results = syncfinder.search(key_list, wav_data, SyncMode.CLIP,
-                                        self.device)
+                                        self.device, x)
         n_channels = wav_data.n_channels
         samples = wav_data.samples
         for key_result in key_results:
@@ -294,6 +330,11 @@ class ClipDecoder:
             raw_map = _raw_map_from_scores(
                 samples, n_channels, key_result.sync_scores, tables,
                 clip=True)
+            if raw_map is None:
+                raw_map = _block_raw_batch(
+                    x, n_channels,
+                    [i for ss in key_result.sync_scores
+                     for i in (ss.index, ss.index + count * FRAME)], tables)
             for sync_score in key_result.sync_scores:
                 index = sync_score.index
                 r1 = raw_map.get(index)

@@ -2,8 +2,9 @@
 and reporting.
 
 Port of audiowmark_tpu/models/getter.py (reference: src/wmget.cc:886-1013):
-chunks are loaded, searched and decoded one after another (no prefetch
-thread, no multi-chunk group search), and speed detection raises: it is not
+input at any sample rate and of any length, in 30-minute chunks resampled
+to 44.1 kHz, loaded, searched and decoded one after another (no prefetch
+thread, no multi-chunk group search).  Speed detection raises: it is not
 ported yet.
 """
 
@@ -77,7 +78,7 @@ def get_watermark(key_list: List[Key], infile: str, orig_pattern: str,
         orig_bitvec = list(parsed)
 
     first_chunk = True
-    loader = WavChunkLoader(infile)
+    loader = WavChunkLoader(infile, dev)
     try:
         while True:
             try:

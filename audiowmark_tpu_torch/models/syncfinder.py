@@ -1,15 +1,14 @@
 """Sync finder: candidate selection over the device search.
 
-Port of audiowmark_tpu/models/syncfinder.py's main path (reference:
-src/syncfinder.cc): the search of ops/search_fused.py on the device, then
-the exact CLI selection on its fetched (K,) outputs — approx
-threshold/n-best, refined candidates, final classification (quality =
-|raw - mean|, block type A for a positive sign).
-
-What the port does not do yet raises NotImplementedError naming its
-ROADMAP item: --test-no-sync, streams longer than MAX_FUSED_FRAMES (the
-tiled search), and candidate slots that stay saturated after the x4
-escalation (the staged search).
+Port of audiowmark_tpu/models/syncfinder.py (reference: src/syncfinder.cc):
+the fused search of ops/search_fused.py on the device, then the exact CLI
+selection on its fetched (K,) outputs — approx threshold/n-best, refined
+candidates, final classification (quality = |raw - mean|, block type A for
+a positive sign).  BLOCK streams longer than MAX_FUSED_FRAMES are searched
+in overlapping tiles; the staged search (one stage at a time, selection on
+the host) takes oversize CLIP streams and candidate slots that stay
+saturated after the x4 escalation; --test-no-sync places the blocks where
+the embedder put them.
 """
 
 from __future__ import annotations
@@ -27,6 +26,7 @@ from audiowmark_tpu.params import Params
 from ..codec.convcode import ConvBlockType
 from ..device import DeviceLike, resolve
 from ..ops import search_fused
+from ..ops import sync as sync_ops
 from ..ops.sync import SHIFTS
 from ..tables import get_key_tables
 
@@ -41,8 +41,10 @@ class Score:
     index: int
     quality: float
     block_type: ConvBlockType
-    # raw soft bits the search extracted at this score's refined position;
-    # CLIP-mode scores also carry raw2, the consecutive second block's bits
+    # raw soft bits the search extracted at this score's refined position
+    # (None after the staged or tiled search and --test-no-sync: the
+    # decoder then extracts in one batch); CLIP-mode scores also carry
+    # raw2, the consecutive second block's bits
     raw: Optional[np.ndarray] = None
     raw2: Optional[np.ndarray] = None
 
@@ -65,6 +67,10 @@ class _SearchScore:
         return abs(self.raw_quality - self.local_mean)
 
 
+def _frame_count(wav_data) -> int:
+    return wav_data.n_values // wav_data.n_channels // Params.frame_size
+
+
 def _scan_silence(samples: np.ndarray) -> Tuple[int, int]:
     """First/last non-zero raw sample-value indices
     (src/syncfinder.cc:155-169); returns (first, last) with last exclusive."""
@@ -72,6 +78,43 @@ def _scan_silence(samples: np.ndarray) -> Tuple[int, int]:
     if nz.size == 0:
         return 0, 0
     return int(nz[0]), int(nz[-1]) + 1
+
+
+def _select_local_maxima(abs_q: np.ndarray) -> np.ndarray:
+    """Local-maxima mask matching the reference's sequential scan
+    (src/syncfinder.cc:258-281): a selected peak skips its right neighbor,
+    which on plateaus of equal values selects every other element.  That
+    alternation restarts at each run of consecutive candidate positions, so
+    it vectorizes as (position - run_start) even."""
+    n = abs_q.size
+    if n == 0:
+        return np.zeros(0, dtype=bool)
+    q_prev = np.concatenate(([0.0], abs_q[:-1]))
+    q_next = np.concatenate((abs_q[1:], [0.0]))
+    mask = (abs_q >= q_prev) & (abs_q >= q_next)
+    idx = np.arange(n)
+    run_start = mask & np.concatenate(([True], ~mask[:-1]))
+    start = np.maximum.accumulate(np.where(run_start, idx, -1))
+    return mask & ((idx - start) % 2 == 0)
+
+
+def _mask_avg_false_positives(indices: np.ndarray, raw: np.ndarray,
+                              mean: np.ndarray) -> np.ndarray:
+    """Keep-mask: drop candidates with an opposite-sign neighbor 3x larger
+    within 23 steps (src/syncfinder.cc:283-332), as shifted array
+    comparisons."""
+    mask_distance = 20 + 3  # local_mean_distance + 3
+    mask_factor = 3.0
+    n = indices.size
+    aq = np.abs(raw - mean)
+    sign = np.where(raw - mean < 0, -1, 1)
+    masked = np.zeros(n, dtype=bool)
+    for d in range(1, min(mask_distance, n - 1) + 1):
+        step_dist = (indices[d:] - indices[:-d]) // Params.sync_search_step
+        opp = (step_dist <= mask_distance) & (sign[d:] != sign[:-d])
+        masked[:-d] |= opp & (aq[d:] > aq[:-d] * mask_factor)
+        masked[d:] |= opp & (aq[:-d] > aq[d:] * mask_factor)
+    return ~masked
 
 
 def _threshold_n_best_order(abs_q: np.ndarray,
@@ -92,15 +135,53 @@ def _select_threshold_and_n_best(scores: List[_SearchScore],
     return [scores[i] for i in _threshold_n_best_order(aq, threshold)]
 
 
+def _fake_sync(key_list: List[Key], wav_data,
+               mode: SyncMode) -> List[KeyResult]:
+    """--test-no-sync: the exact expected positions
+    (src/syncfinder.cc:460-485)."""
+    result_scores = []
+    if mode == SyncMode.BLOCK:
+        tables = get_key_tables(key_list[0])
+        expect0 = Params.frames_pad_start * Params.frame_size
+        expect_step = tables.frames_per_block * Params.frame_size
+        expect_end = _frame_count(wav_data) * Params.frame_size
+        ab = 0
+        idx = expect0
+        while idx + expect_step < expect_end:
+            result_scores.append(Score(
+                idx, 1.0,
+                ConvBlockType.b if (ab & 1) else ConvBlockType.a))
+            ab += 1
+            idx += expect_step
+    return [KeyResult(key=key, sync_scores=list(result_scores))
+            for key in key_list]
+
+
+def upload(wav_data, device: torch.device) -> torch.Tensor:
+    """wav_data's samples as a (n*C,) f32 tensor on `device`."""
+    return torch.from_numpy(
+        np.ascontiguousarray(wav_data.samples, dtype=np.float32)).to(device)
+
+
 def search(key_list: List[Key], wav_data, mode: SyncMode,
-           device: DeviceLike = None) -> List[KeyResult]:
-    """Candidate block starts per key, from the device search."""
+           device: DeviceLike = None,
+           x: Optional[torch.Tensor] = None) -> List[KeyResult]:
+    """Candidate block starts per key: the fused search, or the staged one
+    where the fused search returns None (an oversize CLIP stream, slots
+    saturated at _K_CAP).  x: wav_data's samples already on the device
+    (upload), else uploaded here."""
     if Params.test_no_sync:
-        raise NotImplementedError(
-            "audiowmark_tpu_torch: --test-no-sync is not ported yet "
-            "(ROADMAP Queue 1: staged sync search)")
+        return _fake_sync(key_list, wav_data, mode)
     dev = resolve(device)
-    return [_search_fused_one(key, wav_data, mode, dev) for key in key_list]
+    if x is None:
+        x = upload(wav_data, dev)
+    results = []
+    for key in key_list:
+        r = _search_fused_one(key, wav_data, mode, x)
+        if r is None:
+            return search_staged(key_list, wav_data, mode, dev, x)
+        results.append(r)
+    return results
 
 
 _K_CAP = 1024
@@ -170,7 +251,9 @@ def _select_from_fused(key: Key, out_np: dict, K: int, clip: bool,
 
 
 def _search_fused_one(key: Key, wav_data, mode: SyncMode,
-                      device: torch.device) -> KeyResult:
+                      x: torch.Tensor) -> Optional[KeyResult]:
+    """The fused search for one key on x (wav_data's samples on the
+    device); None -> the caller takes the staged search."""
     samples = wav_data.samples
     n_channels = wav_data.n_channels
     true_frames = samples.size // n_channels
@@ -182,13 +265,14 @@ def _search_fused_one(key: Key, wav_data, mode: SyncMode,
     if n_starts_true <= 0:
         return KeyResult(key=key)
 
-    T = search_fused.bucket_frames(F)
+    # T covers every sample, a partial last frame included (the JAX
+    # package takes bucket_frames(F) and fails when F is a multiple of
+    # _BUCKET_FRAMES and a partial frame follows; T is the same elsewhere)
+    T = search_fused.bucket_frames(-(-true_frames // Params.frame_size))
     if T > search_fused.MAX_FUSED_FRAMES:
-        raise NotImplementedError(
-            "audiowmark_tpu_torch: a %d-frame stream needs the tiled sync "
-            "search (more than %d frames), which is not ported yet "
-            "(ROADMAP Queue 1: long files)"
-            % (F, search_fused.MAX_FUSED_FRAMES))
+        if clip:
+            return None         # clips are short; oversize -> staged search
+        return _search_fused_tiled(key, wav_data, tables, x, n_starts_true)
     n_starts_s = SHIFTS * (T - 1 - total)
 
     if clip:
@@ -196,10 +280,9 @@ def _search_fused_one(key: Key, wav_data, mode: SyncMode,
     else:
         sil_first, sil_last = 0, samples.size
 
-    x = np.zeros(T * Params.frame_size * n_channels, np.float32)
-    x[:samples.size] = samples
-    x = torch.from_numpy(x).to(device)
-    searcher = search_fused.sync_searcher(tables, clip, device)
+    x = torch.cat([x, x.new_zeros(T * Params.frame_size * n_channels
+                                  - x.shape[0])])
+    searcher = search_fused.sync_searcher(tables, clip, x.device)
 
     # saturation escalation: retry with 4x the slots (reduced sync
     # geometries overflow the default top-K with above-threshold candidates)
@@ -208,14 +291,183 @@ def _search_fused_one(key: Key, wav_data, mode: SyncMode,
         K, complete = _fused_k_for(T, tables.frames_per_block, n_starts_s,
                                    k_min)
         out = searcher(x, n_channels, K, n_starts_true, true_frames,
-                       sil_first, sil_last)
+                       sil_first, sil_last, 0, n_starts_s)
         out_np = {k: v.cpu().numpy() for k, v in out.items()}
         r = _select_from_fused(key, out_np, K, clip, complete)
         if r is not None:
             return r
         if complete or K >= _K_CAP:
-            raise NotImplementedError(
-                "audiowmark_tpu_torch: sync candidate slots saturated at "
-                "K=%d; the staged sync search is not ported yet "
-                "(ROADMAP Queue 1: staged sync search)" % K)
+            return None
         k_min = K * 4
+
+
+def _n_above(out_np: dict, n_el: int) -> int:
+    aq = np.abs(out_np["q"][:n_el].astype(np.float64)
+                - out_np["mean"][:n_el].astype(np.float64))
+    return int(np.count_nonzero(aq > Params.sync_threshold2 * 0.75))
+
+
+def _search_fused_tiled(key: Key, wav_data, tables, x_full: torch.Tensor,
+                        n_starts_true: int) -> Optional[KeyResult]:
+    """BLOCK search for streams beyond MAX_FUSED_FRAMES (the production
+    30-minute chunk, src/wavchunkloader.cc:74-97): overlapping tiles of
+    MAX_FUSED_FRAMES frames, one search each on device-side slices of the
+    chunk's one upload, eligibility restricted to disjoint cores, merged
+    CLI-exact selection on the host.
+
+    Scores are exact everywhere (each start's span lies inside its tile's
+    audio); eligibility needs neighbourhood context (+-20 local mean, +-23
+    opposite-sign mask), so each tile also scores a TILE_HALO ring it may
+    not take candidates from.  The result equals the whole-stream search
+    except on exact-score tie plateaus crossing a tile boundary.  Every
+    tile is launched before the first host read; tiles skip the raws
+    (selection keeps ~n_best of all the slots; the decoder extracts the
+    survivors in one batch), and a saturated tile escalates K on its own.
+    None -> the staged search (a tile saturated at _K_CAP)."""
+    samples = wav_data.samples
+    C = wav_data.n_channels
+    frame = Params.frame_size
+    true_frames = samples.size // C
+    T_tile = search_fused.MAX_FUSED_FRAMES
+    HALO = search_fused.TILE_HALO
+    n_starts_tile = SHIFTS * (T_tile - 1 - tables.frames_per_block)
+    if n_starts_tile <= 2 * HALO + SHIFTS:
+        return None             # a tile can't fit a core between its halos
+    tile_vals = T_tile * frame * C
+    searcher = search_fused.sync_searcher(tables, False, x_full.device)
+
+    # ---- geometry, and one launch per tile ----
+    tiles = []
+    g_core_lo = 0
+    while g_core_lo < n_starts_true:
+        f0 = max(g_core_lo - HALO, 0) // SHIFTS
+        g0 = SHIFTS * f0
+        core_lo = g_core_lo - g0
+        n_valid = min(n_starts_tile, n_starts_true - g0)
+        core_hi = n_valid if g0 + n_starts_tile >= n_starts_true \
+            else n_starts_tile - HALO
+        lo_v = f0 * frame * C
+        seg_vals = min(tile_vals, samples.size - lo_v)
+        x = x_full[lo_v: lo_v + seg_vals]
+        if seg_vals < tile_vals:
+            x = torch.cat([x, x.new_zeros(tile_vals - seg_vals)])
+        args = (x, C, n_valid, true_frames - f0 * frame, 0, seg_vals,
+                core_lo, core_hi)
+        K, complete = _fused_k_for(T_tile, tables.frames_per_block,
+                                   core_hi - core_lo)
+        out = _launch(searcher, args, K)
+        tiles.append((g0, f0, args, K, complete, out))
+        g_core_lo = g0 + core_hi
+
+    # ---- read in launch order; escalate saturated tiles ----
+    cand = {k: [] for k in ("t", "q", "mean", "rpos", "rq")}
+    for g0, f0, args, K, complete, out in tiles:
+        while True:
+            out_np = {k: v.cpu().numpy() for k, v in out.items()}
+            n_el = int(np.count_nonzero(out_np["eligible"]))
+            if not (n_el == K and _n_above(out_np, n_el) == K
+                    and not complete):
+                break
+            if K >= _K_CAP:
+                return None     # saturated tile at the cap: staged search
+            core_lo, core_hi = args[-2:]
+            K, complete = _fused_k_for(T_tile, tables.frames_per_block,
+                                       core_hi - core_lo, K * 4)
+            out = _launch(searcher, args, K)
+        cand["t"].append(out_np["t"][:n_el].astype(np.int64) + g0)
+        cand["q"].append(out_np["q"][:n_el].astype(np.float64))
+        cand["mean"].append(out_np["mean"][:n_el].astype(np.float64))
+        cand["rpos"].append(out_np["refined_pos"][:n_el].astype(np.int64)
+                            + f0 * frame)
+        cand["rq"].append(out_np["refined_q"][:n_el].astype(np.float64))
+
+    # ---- merged CLI-exact selection: each tile's slots are quality-
+    # descending, but the host selection breaks quality ties by approx step
+    # order, so sort the merged slots by global step first (cores are
+    # disjoint, so steps are unique across tiles) ----
+    order = np.argsort(np.concatenate(cand["t"]), kind="stable")
+    q = np.concatenate(cand["q"])[order]
+    mean = np.concatenate(cand["mean"])[order]
+    rpos = np.concatenate(cand["rpos"])[order]
+    rq = np.concatenate(cand["rq"])[order]
+    sel = _threshold_n_best_order(np.abs(q - mean),
+                                  Params.sync_threshold2 * 0.75)
+    keep = [_SearchScore(index=int(rpos[i]), raw_quality=float(rq[i]),
+                         local_mean=float(mean[i])) for i in sel]
+    return _finalize_scores(key, keep)
+
+
+def _launch(searcher, args, K: int) -> dict:
+    """One tile's search without raws; its outputs stay on the device."""
+    x, C, n_valid, n_samp_rel, sil_first, sil_last, core_lo, core_hi = args
+    return searcher(x, C, K, n_valid, n_samp_rel, sil_first, sil_last,
+                    core_lo, core_hi, extract=False)
+
+
+def search_staged(key_list: List[Key], wav_data, mode: SyncMode,
+                  device: DeviceLike = None,
+                  x: Optional[torch.Tensor] = None) -> List[KeyResult]:
+    """The search one stage at a time (the fused search's oracle and its
+    fallback): spectrogram, sweep and local mean on the device, selection
+    on the host, then the refinement grid on the device.  Scores carry no
+    raws."""
+    dev = resolve(device)
+    if x is None:
+        x = upload(wav_data, dev)
+    samples = wav_data.samples
+    n_channels = wav_data.n_channels
+    clip = mode == SyncMode.CLIP
+    silence_bounds = _scan_silence(samples) if clip else None
+
+    # one spectrogram shared by all keys
+    S, have = sync_ops.hop_spectrogram(x, n_channels, silence_bounds)
+
+    key_results: List[KeyResult] = []
+    for key in key_list:
+        sb = sync_ops.device_sync_bits(get_key_tables(key), clip, dev)
+        q_dev = sync_ops.sync_score_sweep(S, have, sb).to(torch.float64)
+        qualities = q_dev.cpu().numpy()
+        means = sync_ops.local_mean(q_dev).cpu().numpy()
+
+        # array-stage selection: no per-tau Python objects until only
+        # ~n_best candidates remain
+        abs_q = np.abs(qualities - means)
+        sel = np.nonzero(_select_local_maxima(abs_q))[0]
+        indices = sel * Params.sync_search_step
+        keep = _mask_avg_false_positives(indices, qualities[sel], means[sel])
+        sel = sel[keep]
+        order = _threshold_n_best_order(abs_q[sel],
+                                        Params.sync_threshold2 * 0.75)
+        sel = sel[order]
+        if clip:
+            # already quality-sorted; truncate (src/syncfinder.cc:528-533)
+            sel = sel[:max(Params.get_n_best, 5)]
+
+        scores = [
+            _SearchScore(index=int(t) * Params.sync_search_step,
+                         raw_quality=float(qualities[t]),
+                         local_mean=float(means[t]))
+            for t in sel
+        ]
+
+        # refine: +-256 around each candidate in steps of 8
+        grid_pos, grid_quals = sync_ops.refine_grid(
+            x, n_channels,
+            np.asarray([s.index for s in scores], dtype=np.int64), sb,
+            silence_bounds)
+
+        refined = []
+        for score, positions, quals in zip(scores, grid_pos, grid_quals):
+            best_quality = score.raw_quality
+            best_index = score.index
+            for pos, q in zip(positions, quals):
+                if np.isnan(q):
+                    continue
+                if abs(q - score.local_mean) \
+                        > abs(best_quality - score.local_mean):
+                    best_quality = float(q)
+                    best_index = int(pos)
+            refined.append(_SearchScore(best_index, best_quality,
+                                        score.local_mean))
+        key_results.append(_finalize_scores(key, refined))
+    return key_results

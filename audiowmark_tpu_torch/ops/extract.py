@@ -14,6 +14,7 @@ import torch
 
 from audiowmark_tpu.params import Params
 
+from ..tables import KeyTables, tables_to_device
 from .frames import FRAME, MIN_DB, _LOG2_DB
 
 # candidates per pass: bounds the (cands, count, C, FRAME) window stack
@@ -28,6 +29,24 @@ def db_bands(windows: torch.Tensor, awin: torch.Tensor) -> torch.Tensor:
     abs2 = spec.real ** 2 + spec.imag ** 2
     return torch.where(abs2 > 0, torch.log2(abs2) * _LOG2_DB,
                        torch.full_like(abs2, MIN_DB))
+
+
+def layout(tables: KeyTables, device):
+    """The key's soft-bit layout for block_raw on `device`: (lay_frame,
+    lay_up, lay_dn, group), the mix-scatter entries (bands relative to
+    min_band, `group` entries per bit) or, with Params.mix off, the linear
+    per-frame band tables (group 0)."""
+    dev = tables_to_device(tables, device)
+    if Params.mix:
+        lay = (dev["mix_frame"], dev["mix_up"] - Params.min_band,
+               dev["mix_dn"] - Params.min_band)
+        group = Params.bands_per_frame * Params.frames_per_bit
+    else:
+        lay = (dev["pos_vec"][tables.n_sync_frames:],
+               dev["data_up"] - Params.min_band,
+               dev["data_dn"] - Params.min_band)
+        group = 0
+    return tuple(a.to(torch.int64) for a in lay) + (group,)
 
 
 def block_raw(x: torch.Tensor, starts: torch.Tensor, awin: torch.Tensor,

@@ -10,8 +10,10 @@ Port of audiowmark_tpu/ops/frames.py.  Reference behavior:
 
 `add_file_core` is plain PyTorch on the device: window -> rfft -> delta on
 the keyed bins -> irfft -> 3-frame overlap-add -> mix -> limiter -> int16
-trunc-clip, in one pass over the whole file.  FFTW's unnormalized c2r is
-matched as irfft * FRAME.
+trunc-clip, in one pass over the whole file.  `embed_delta_frames` is the
+streaming add's tile step: the same delta and overlap-add, with the last
+two iffts carried on the device from tile to tile.  FFTW's unnormalized
+c2r is matched as irfft * FRAME.
 """
 
 from __future__ import annotations
@@ -82,6 +84,48 @@ def limiter_apply(mixed: torch.Tensor, ceiling: torch.Tensor,
     return out[:n]
 
 
+def _delta_iffts(frames: torch.Tensor, mods: torch.Tensor,
+                 water_delta: float, awin: torch.Tensor) -> torch.Tensor:
+    """(T, C, FRAME) frames, (T, N_BINS) int8 mods -> the (T, C, FRAME)
+    delta frames before overlap-add: window -> rfft -> mag^(-wd*sign) - 1
+    on marked bins (1e-7 magnitude guard) -> irfft * FRAME (FFTW's
+    unnormalized c2r)."""
+    spec = torch.fft.rfft(frames * awin, dim=-1)          # (T, C, N_BINS)
+    mag = torch.abs(spec)
+    sign = mods.to(torch.float32)[:, None, :]
+    safe_mag = torch.clamp_min(mag, 1e-7)
+    factor = torch.exp(torch.log(safe_mag) * _f32(-water_delta, frames)
+                       * sign) - 1.0
+    factor = torch.where((mag > 1e-7) & (sign != 0), factor,
+                         torch.zeros_like(factor))
+    return torch.fft.irfft(spec * factor, n=FRAME, dim=-1) * FRAME
+
+
+def embed_delta_frames(frames: torch.Tensor, mods: torch.Tensor,
+                       water_delta: float, awin: torch.Tensor,
+                       swin: torch.Tensor, prev1=None, prev2=None):
+    """Streaming delta overlap-add for a tile of frames k0..k0+T-1
+    (audiowmark_tpu ops/frames._embed_delta_core).
+
+    frames: (T, C, FRAME) float32, deinterleaved input frames;
+    mods: (T, N_BINS) int8; prev1/prev2: (C, FRAME) iffts of frames k0-1
+    and k0-2 (the carry; None at the stream start means zeros).
+    Emits the overlap-add output frames j = k0-1 .. k0+T-2, one per input
+    frame (the synth's one-frame latency):
+        out[j] = W0*D[j+1] + W1*D[j] + W2*D[j-1]
+    Returns (out (T, C, FRAME), new prev1, new prev2)."""
+    C = frames.shape[1]
+    if prev1 is None:
+        prev1 = frames.new_zeros((C, FRAME))
+    if prev2 is None:
+        prev2 = frames.new_zeros((C, FRAME))
+    iffts = _delta_iffts(frames, mods, water_delta, awin)
+    ext = torch.cat([prev2[None], prev1[None], iffts], dim=0)
+    out = ext[2:] * swin[:FRAME] + ext[1:-1] * swin[FRAME:2 * FRAME] \
+        + ext[:-2] * swin[2 * FRAME:]
+    return out, iffts[-1], ext[-2]
+
+
 def add_file_core(x: torch.Tensor, mods: torch.Tensor, water_delta: float,
                   awin: torch.Tensor, swin: torch.Tensor, n_channels: int,
                   n_out: int, no_limiter: bool, out_i16: bool,
@@ -98,16 +142,7 @@ def add_file_core(x: torch.Tensor, mods: torch.Tensor, water_delta: float,
     """
     n_frames = mods.shape[0]
     frames = x.reshape(n_frames, FRAME, n_channels).transpose(1, 2)
-
-    spec = torch.fft.rfft(frames * awin, dim=-1)          # (T, C, N_BINS)
-    mag = torch.abs(spec)
-    sign = mods.to(torch.float32)[:, None, :]
-    safe_mag = torch.clamp_min(mag, 1e-7)
-    factor = torch.exp(torch.log(safe_mag) * _f32(-water_delta, x) * sign) \
-        - 1.0
-    factor = torch.where((mag > 1e-7) & (sign != 0), factor,
-                         torch.zeros_like(factor))
-    iffts = torch.fft.irfft(spec * factor, n=FRAME, dim=-1) * FRAME
+    iffts = _delta_iffts(frames, mods, water_delta, awin)
 
     # streamed alignment: delta frame j = D[j+1]*w0 + D[j]*w1 + D[j-1]*w2
     # (one-frame synth latency, first emitted frame dropped)

@@ -1,4 +1,5 @@
-"""The port on a CUDA card: kernel K1 vs its plain version, and the slice on
+"""The port on a CUDA card: kernel K1 vs its plain version, and the slice,
+the streaming resampler, the 48 kHz streaming add and the staged search on
 the card vs the port on the CPU.
 
 Every test here needs the card and skips without one.  This file imports
@@ -110,3 +111,72 @@ def test_slice_on_card_matches_cpu(tmp_path):
             assert a == b
     assert ["match_count", "5"] == [w for w in card if w[0] ==
                                     "match_count"][0][:2]
+
+
+def test_resampler_on_card_matches_cpu():
+    """The streaming resampler on the card vs on the CPU, over the same
+    writes: readable counts exact, samples within atol 1e-6 (float64
+    coefficients on each device by one formula, whose sin and cos may
+    differ in the last float64 bit; the multiply-adds round alike).  The
+    float32 coefficient rows themselves agree within atol 1e-7."""
+    from audiowmark_tpu_torch.ops.resample import (StreamingResampler,
+                                                   _coeffs)
+    frac = torch.from_numpy(np.random.RandomState(4).rand(65536))
+    rows = [_coeffs(frac.to(dev), 44100 / 48000).cpu().numpy()
+            for dev in ("cuda", "cpu")]
+    print("coefficients that differ: %d of %d"
+          % (np.count_nonzero(rows[0] != rows[1]), rows[0].size))
+    np.testing.assert_allclose(rows[0], rows[1], rtol=0, atol=1e-7)
+    rng = np.random.RandomState(3)
+    x = ((rng.rand(48000 * 2) * 2 - 1) * 0.9).astype(np.float32)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        res = StreamingResampler(2, 48000, 44100, dev)
+        got, counts = [], []
+        for lo, hi in ((0, 1000), (1000, 30000), (30000, 48000)):
+            res.write_frames(x[2 * lo:2 * hi])
+            counts.append(res.can_read_frames())
+            got.append(res.read_frames(counts[-1]).cpu().numpy())
+        outs.append((np.concatenate(got), counts))
+    assert outs[0][1] == outs[1][1]
+    np.testing.assert_allclose(outs[0][0], outs[1][0], rtol=0, atol=1e-6)
+
+
+def test_streaming_add_and_staged_search_on_card_match_cpu(tmp_path):
+    """A 48 kHz streaming add (raw input of unknown length, through the
+    resampler pair) on the card vs on the CPU, within 1 LSB; then the
+    staged and the fused search of the card's file, on the card, equal
+    the CPU's staged search.  Geometry of tests/test_torch_slice.py."""
+    from audiowmark_tpu.params import Format
+    from audiowmark_tpu_torch.models import syncfinder as sf
+    Params.sync_frames_per_bit = 30
+    Params.frames_per_bit = 1
+    rng = np.random.RandomState(48)
+    rng.randint(-16000, 16000, 32 * 48000 * 2).astype("<i2").tofile(
+        str(tmp_path / "n48.raw"))
+    marked = []
+    for dev in ("cuda", "cpu"):
+        Params.input_format = Format.RAW
+        Params.raw_input_format.set_sample_rate(48000)
+        wm = str(tmp_path / ("wm_%s.wav" % dev))
+        assert add_watermark(Key(), str(tmp_path / "n48.raw"), wm, MSG,
+                             device=dev) == 0
+        Params.input_format = Format.AUTO
+        marked.append(WavData.load(wm))
+    a, b = (m.samples.astype(np.float64) for m in marked)
+    assert a.shape == b.shape == (32 * 48000 * 2,)
+    assert np.abs(a - b).max() * 32768 <= 1.0
+
+    from audiowmark_tpu_torch.ops.resample import resample
+    wav44 = resample(marked[0], 44100, device="cuda")
+    results = [sf.search_staged([Key()], wav44, sf.SyncMode.BLOCK, dev)
+               for dev in ("cuda", "cpu")]
+    results.append(sf.search([Key()], wav44, sf.SyncMode.BLOCK, "cuda"))
+    want = [(s.index, s.block_type) for s in results[1][0].sync_scores]
+    assert want
+    for r in (results[0], results[2]):
+        assert [(s.index, s.block_type) for s in r[0].sync_scores] == want
+        np.testing.assert_allclose(
+            [s.quality for s in r[0].sync_scores],
+            [s.quality for s in results[1][0].sync_scores],
+            rtol=2e-4, atol=2e-5)

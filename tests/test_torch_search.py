@@ -86,7 +86,7 @@ def _run_both(samples, clip):
     searcher = tsf.SyncSearcher(ttables.get_key_tables(key), clip, "cpu")
     got = {k: v.numpy() for k, v in searcher(
         torch.from_numpy(x), C, K, n_starts, true_frames, sil[0],
-        sil[1]).items()}
+        sil[1], 0, n_starts_s).items()}
     return got, want
 
 
