@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from audiowmark_tpu.params import Params
+from ..params import Params
 
 from ..device import DeviceLike
 from .convcode import (ConvBlockType, conv_code_size, conv_decode_soft_batch,

@@ -14,7 +14,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from audiowmark_tpu.params import Params
+from ..params import Params
 
 from ..device import DeviceLike
 from .convcode import (ConvBlockType, conv_code_size, conv_decode_soft,

@@ -4,8 +4,10 @@ Each source compiles on its own into a shared library with a plain C
 interface, for sm_90a (Hopper), and is loaded with ctypes, as the JAX
 package loads its native AES and codec shims.  The library lands in the
 package's `_build/` directory, named by a hash of the source and the flags,
-so an edited source rebuilds and an unchanged one is reused.  Nothing here
-runs at import time: a CPU-only machine never reaches it.
+so an edited source rebuilds and an unchanged one is reused; ptxas's report
+of each kernel's registers, spills and shared memory is kept beside it
+(`ptxas_report`).  Nothing here runs at import time: a CPU-only machine
+never reaches it.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -60,8 +62,16 @@ def build(name: str) -> str:
         raise RuntimeError("nvcc failed on csrc/%s.cu (exit %d):\n%s%s"
                            % (name, proc.returncode, proc.stdout,
                               proc.stderr))
+    with open(out + ".log", "w") as f:       # ptxas: registers, spills
+        f.write(proc.stdout + proc.stderr)
     os.replace(tmp, out)      # atomic: a concurrent build sees all or none
     return out
+
+
+def ptxas_report(name: str) -> str:
+    """What ptxas said of csrc/<name>.cu's kernels when it was built."""
+    with open(build(name) + ".log") as f:
+        return f.read()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -9,7 +9,8 @@ rate give the same bytes from either package.
 AES-CTR keystream in numpy would take minutes.
 
 `acs_check_metrics` gives branch metrics that hold the Viterbi trellis's
-hard cases, for checking kernel K1 against its plain version.
+hard cases, for checking kernel K1 against its plain version, and
+`acs_equal` is that check.
 """
 
 from __future__ import annotations
@@ -17,10 +18,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from audiowmark_tpu.crypto import aes
-from audiowmark_tpu.crypto.keys import Key
-from audiowmark_tpu.crypto.prng import Random, Stream
-from audiowmark_tpu.io.wavdata import WavData
+from .crypto import aes
+from .crypto.keys import Key
+from .crypto.prng import Random, Stream
+from .io.wavdata import WavData
 
 from .codec.convcode import (ConvBlockType, _state_output_table,
                              batch_branch_metrics, conv_encode)
@@ -34,10 +35,12 @@ def acs_check_metrics(seed: int, batch: int, steps: int,
     from a numpy seed: one row of a clean codeword per block type (integer
     metrics, so many paths tie exactly), one all-NaN row (what
     normalize_soft_bits gives for silence), and uniform-random rows for the
-    rest.  steps must exceed ORDER; batch must be at least 4."""
-    if steps <= ORDER or batch < 4:
-        raise ValueError("need steps > %d and batch >= 4" % ORDER)
+    rest.  Where steps <= ORDER (no codeword fits) or batch < 4, every row
+    is uniform-random."""
     rng = np.random.RandomState(seed)
+    if steps <= ORDER or batch < 4:
+        return torch.from_numpy(rng.rand(batch, steps, STATE_COUNT)
+                                .astype(np.float32)).to(device)
     rows = []
     for bt in ConvBlockType:
         coded = conv_encode(bt, rng.randint(0, 2, steps - ORDER)) \
@@ -53,6 +56,15 @@ def acs_check_metrics(seed: int, batch: int, steps: int,
     rand = rng.rand(batch - len(rows), steps, STATE_COUNT).astype(np.float32)
     bm = torch.cat([torch.stack(rows), torch.from_numpy(rand)])
     return bm.contiguous().to(device)
+
+
+def acs_equal(got, want) -> bool:
+    """Two (decisions, metrics, bits) of the trellis are equal bit for bit,
+    NaN metrics equal to NaN."""
+    return (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+            and torch.equal(torch.isnan(got[1]), torch.isnan(want[1]))
+            and torch.equal(torch.nan_to_num(got[1]),
+                            torch.nan_to_num(want[1])))
 
 
 def gen_noise(key: Key, out_file: str, seconds: float, rate: int,

@@ -16,9 +16,9 @@ from typing import Optional
 
 import numpy as np
 
-from audiowmark_tpu.io.streams import StreamError, create_input_stream
-from audiowmark_tpu.io.wavdata import WavData
-from audiowmark_tpu.params import Params
+from ..io.streams import StreamError, create_input_stream
+from ..io.wavdata import WavData
+from ..params import Params
 
 from ..device import DeviceLike, resolve
 from ..ops.resample import StreamingResampler

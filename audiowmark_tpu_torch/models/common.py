@@ -9,9 +9,9 @@ from typing import Optional
 
 import numpy as np
 
-from audiowmark_tpu.params import Params
-from audiowmark_tpu.utils.hexbits import bit_str_to_vec
-from audiowmark_tpu.utils.log import error
+from ..params import Params
+from ..utils.hexbits import bit_str_to_vec
+from ..utils.log import error
 
 from ..codec import ConvBlockType, code_encode
 from ..ops.frames import N_BINS

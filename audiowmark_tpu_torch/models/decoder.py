@@ -19,8 +19,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from audiowmark_tpu.crypto.keys import Key
-from audiowmark_tpu.params import Params
+from ..crypto.keys import Key
+from ..params import Params
 
 from ..codec import ConvBlockType, code_size
 from ..codec.convcode import conv_decode_soft_mixed

@@ -21,13 +21,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from audiowmark_tpu.crypto.keys import Key
-from audiowmark_tpu.io.streams import (AudioInputStream, AudioOutputStream,
-                                       StreamError, create_input_stream,
-                                       create_output_stream)
-from audiowmark_tpu.params import Encoding, Format, Params, RawFormat
-from audiowmark_tpu.utils.hexbits import bit_vec_to_str
-from audiowmark_tpu.utils.log import error, info, warning
+from ..crypto.keys import Key
+from ..io.streams import (AudioInputStream, AudioOutputStream, StreamError,
+                          create_input_stream, create_output_stream)
+from ..params import Encoding, Format, Params, RawFormat
+from ..utils.hexbits import bit_vec_to_str
+from ..utils.log import error, info, warning
 
 from ..device import DeviceLike, resolve
 from ..ops.frames import FRAME, add_file_core, embed_delta_frames
@@ -229,7 +228,7 @@ def _ref_generator_frame_cap(n_in_frames: int, in_rate: int,
 def _add_file_fast(embedder: StreamingEmbedder, in_stream: AudioInputStream,
                    out_stream: AudioOutputStream, n_channels: int) -> int:
     """Whole-file add in one device pass; returns the frames written."""
-    from audiowmark_tpu.io.ffshim import drain_stream
+    from ..io.ffshim import drain_stream
 
     device = embedder.device
     samples = drain_stream(in_stream)

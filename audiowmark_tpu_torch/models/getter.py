@@ -12,11 +12,11 @@ from __future__ import annotations
 
 from typing import List
 
-from audiowmark_tpu.crypto.keys import Key
-from audiowmark_tpu.io.streams import StreamError
-from audiowmark_tpu.io.wavdata import WavData
-from audiowmark_tpu.params import Params
-from audiowmark_tpu.utils.log import error
+from ..crypto.keys import Key
+from ..io.streams import StreamError
+from ..io.wavdata import WavData
+from ..params import Params
+from ..utils.log import error
 
 from ..device import DeviceLike, resolve
 from .chunkloader import WavChunkLoader

@@ -14,9 +14,9 @@ from dataclasses import dataclass
 from enum import Enum
 from typing import List, Optional
 
-from audiowmark_tpu.crypto.keys import Key
-from audiowmark_tpu.params import Params
-from audiowmark_tpu.utils.hexbits import bit_vec_to_str
+from ..crypto.keys import Key
+from ..params import Params
+from ..utils.hexbits import bit_vec_to_str
 
 from ..codec.convcode import ConvBlockType
 
@@ -128,7 +128,7 @@ class ResultSet:
         try:
             f = sys.stdout if json_file == "-" else open(json_file, "w")
         except OSError as e:
-            from audiowmark_tpu.utils.log import error
+            from ..utils.log import error
             error("audiowmark: failed to write results to '%s': %s\n"
                   % (json_file, e))
             sys.exit(127)  # reference: src/wmget.cc print_json perror+exit

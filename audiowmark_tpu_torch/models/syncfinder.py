@@ -20,8 +20,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from audiowmark_tpu.crypto.keys import Key
-from audiowmark_tpu.params import Params
+from ..crypto.keys import Key
+from ..params import Params
 
 from ..codec.convcode import ConvBlockType
 from ..device import DeviceLike, resolve

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from audiowmark_tpu.params import Params
+from ..params import Params
 
 from ..tables import KeyTables, tables_to_device
 from .frames import FRAME, MIN_DB, _LOG2_DB

@@ -23,7 +23,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from audiowmark_tpu.params import Params
+from ..params import Params
 
 FRAME = Params.frame_size
 N_BINS = FRAME // 2 + 1

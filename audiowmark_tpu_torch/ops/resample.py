@@ -27,8 +27,8 @@ import math
 import numpy as np
 import torch
 
-from audiowmark_tpu.io.wavdata import WavData
-from audiowmark_tpu.params import Params
+from ..io.wavdata import WavData
+from ..params import Params
 
 from ..device import DeviceLike, resolve
 

@@ -23,7 +23,7 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
-from audiowmark_tpu.params import Params
+from ..params import Params
 
 from ..device import DeviceLike, resolve
 from ..tables import KeyTables, tables_to_device

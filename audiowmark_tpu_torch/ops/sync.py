@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from audiowmark_tpu.params import Params
+from ..params import Params
 
 from ..device import DeviceLike
 from ..tables import KeyTables, tables_to_device

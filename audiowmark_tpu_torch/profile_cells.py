@@ -107,7 +107,7 @@ def main(argv=None) -> int:
         print("profile_cells: no CUDA device", file=sys.stderr)
         return 1
 
-    from audiowmark_tpu.crypto.keys import Key
+    from .crypto.keys import Key
 
     from . import add_watermark, get_watermark
     from .fixtures import gen_noise, long_noise

@@ -26,10 +26,10 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from audiowmark_tpu.crypto.keys import Key
-from audiowmark_tpu.crypto.prng import (Stream, batched_shuffle_identity,
-                                        shuffle_identity)
-from audiowmark_tpu.params import Params
+from .crypto.keys import Key
+from .crypto.prng import (Stream, batched_shuffle_identity,
+                          shuffle_identity)
+from .params import Params
 
 from .codec.convcode import ConvBlockType, conv_code_size
 from .codec.shortcode import short_code_output_size

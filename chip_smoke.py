@@ -8,19 +8,26 @@ get_watermark as `cmp` — on deterministic 16-bit stereo noise at 44.1 kHz
 (the CLI's test-gen-noise), at the full production geometry:
 
   1. environment: card, power limit, torch/CUDA versions, matmul precision;
-  2. build kernel K1 (csrc/viterbi_acs.cu) with nvcc and time the build;
-  3. K1 vs its plain PyTorch version on the card at B=16, 143 steps, on
-     clean codewords (exact ties), an all-NaN row and random rows:
-     decisions, metrics (NaN equal to NaN) and bits exact; both timed
-     with CUDA events (phase 13 repeats this at the largest batch of the
-     32-min get);
+  2. build kernel K1 (csrc/viterbi_acs.cu) with nvcc, time the build and
+     print ptxas's registers and spills;
+  3. K1 vs its plain PyTorch version on the card at 143 steps and B = 1,
+     16 and 52, on clean codewords (exact ties), an all-NaN row and random
+     rows (random rows only at B = 1): packed decisions, the decisions
+     unpacked to one int8 per state, metrics (NaN equal to NaN) and bits
+     exact; both timed with CUDA events, beside the bound (bytes at
+     3.35 TB/s), the share of it and the cluster size (phase 8 repeats
+     this at the main path's largest batch, phase 13 at the 32-min
+     get's);
   4. the add core on the card vs on the CPU on 40 frames (<= 1 LSB, on
      at most 3e-3 of the samples);
   5. 200 s: add, then cmp -> match_count 5 (run twice: cold and warm);
   6. 200 s with the limiter off: SNR >= 32.4 dB, cmp -> match_count 5;
   7. 60 s -> match_count 3 and 30 s -> match_count 1 (the clip decoder);
   8. K1 was launched by the main path (its launch count, reset before
-     phase 5 and read after phase 7, is above 0);
+     phase 5 and read after phase 7, is above 0); the (B, steps) shapes
+     the main path gave K1; K1 checked and timed at the largest of them,
+     and the branch metrics' preparation (batch_branch_metrics and
+     torch.cat, codec/convcode.py:121-126) timed at that B;
   9. resample: 200 s at 32 kHz, add (the streaming add through the
      resampler pair) then cmp -> 5; the marked file resampled to 48 kHz
      on the card, cmp -> 5;
@@ -70,7 +77,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 MSG = "0123456789abcdef0011223344556677"
 SNR_FLOOR_DB = 32.4        # tests/block-decoder-test.sh:18 of the reference
 LONG_MINUTES = 32          # the JAX package's chunked get (bench.py:367)
-K1_BATCH, K1_STEPS = 16, 143
+K1_BATCHES, K1_STEPS = (1, 16, 52), 143
 
 
 def phase(name, **fields):
@@ -109,30 +116,62 @@ def launches_of(path, fn):
 
 
 def k1_check(seed, batch, steps):
-    """K1 vs its plain version on acs_check_metrics rows: decisions,
-    metrics and bits exact.  Returns (max abs metric error, NaN metrics,
-    K1 ms, plain ms)."""
-    from audiowmark_tpu_torch.fixtures import acs_check_metrics
+    """K1 vs its plain version on fixtures.acs_check_metrics rows: packed
+    and unpacked decisions, metrics (NaN = NaN) and bits exact.  Returns
+    the check's numbers: ms and plain ms by CUDA events, the bound (bytes
+    at 3.35 TB/s) and its share, the cluster size."""
+    from audiowmark_tpu_torch.fixtures import acs_check_metrics, acs_equal
+    from audiowmark_tpu_torch.k1_bench import bound_ms
     from audiowmark_tpu_torch.ops import viterbi
     bm = acs_check_metrics(seed, batch, steps, "cuda")
-    dec, met, bits = viterbi.viterbi_acs(bm)
-    pdec, pmet, pbits = viterbi.viterbi_acs_plain(bm)
-    torch.cuda.synchronize()
-    n_dec_diff = int((dec != pdec).sum())
-    both_nan = torch.isnan(met) & torch.isnan(pmet)
-    n_nan = int(both_nan.sum())
-    err = torch.where(both_nan, torch.zeros_like(met), (met - pmet).abs())
-    max_abs_err = float(err.max())
-    check(n_dec_diff == 0 and max_abs_err == 0.0
-          and torch.equal(bits, pbits),
-          "K1 differs from the plain version at B=%d" % batch)
-    check(n_nan == viterbi.STATE_COUNT, "the NaN row's metrics are not NaN")
-    return (max_abs_err, n_nan, cuda_ms(lambda: viterbi.viterbi_acs(bm), 20),
-            cuda_ms(lambda: viterbi.viterbi_acs_plain(bm), 5))
+    got = viterbi.viterbi_acs(bm)
+    want = viterbi.viterbi_acs_plain(bm)
+    check(acs_equal(got, want) and torch.equal(
+        viterbi.unpack_decisions(got[0]), viterbi.unpack_decisions(want[0])),
+        "K1 differs from the plain version at B=%d" % batch)
+    n_nan = int(torch.isnan(got[1]).sum())
+    check(batch < 4 or n_nan == viterbi.STATE_COUNT,
+          "the NaN row's metrics are not NaN")
+    # the NaNs sit at the same places (checked above) and count as 0 apart
+    max_abs_err = float(torch.nan_to_num(got[1] - want[1]).abs().max())
+    ms = cuda_ms(lambda: viterbi.viterbi_acs(bm), 20)
+    plain_ms = cuda_ms(lambda: viterbi.viterbi_acs_plain(bm), 3)
+    bound = bound_ms(batch, steps)
+    return dict(batch=batch, steps=steps, max_abs_err=max_abs_err,
+                nan_metrics=n_nan, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                share=bound / ms, cluster=viterbi.cluster_size(
+                    batch, torch.cuda.get_device_properties(0)
+                    .multi_processor_count))
+
+
+def bm_prep_ms(batch, steps):
+    """CUDA-event ms of preparing K1's input at (batch, steps) as
+    ViterbiDecoder.forward does (codec/convcode.py:121-126): one
+    batch_branch_metrics per block type (a, b and ab rows of seeded soft
+    bits) and their torch.cat."""
+    from audiowmark_tpu_torch.codec import convcode
+    from audiowmark_tpu_torch.ops import viterbi
+    dec = convcode.viterbi_decoder("cuda")
+    rng = np.random.RandomState(batch)
+    groups = []
+    for bt, n in zip(convcode.ConvBlockType,
+                     (batch - 2 * (batch // 3), batch // 3, batch // 3)):
+        if n:
+            rate = dec.table(bt).shape[1]
+            groups.append((bt, torch.from_numpy(
+                rng.rand(n, steps * rate).astype(np.float32)).cuda()))
+
+    def prep():
+        return torch.cat([convcode.batch_branch_metrics(c, dec.table(bt))
+                          for bt, c in groups], dim=0).contiguous()
+
+    check(prep().shape == (batch, steps, viterbi.STATE_COUNT),
+          "branch metrics of the wrong shape")
+    return cuda_ms(prep, 20)
 
 
 def set_params(**params):
-    from audiowmark_tpu.params import Params
+    from audiowmark_tpu_torch.params import Params
     Params.reset()
     for name, value in params.items():
         setattr(Params, name, value)
@@ -187,7 +226,7 @@ def info_line(info, name):
 
 def lsb_apart(a_path, b_path):
     """(largest difference in 16-bit LSBs, samples that differ)."""
-    from audiowmark_tpu.io.wavdata import WavData
+    from audiowmark_tpu_torch.io.wavdata import WavData
     a = WavData.load(a_path).samples.astype(np.float64)
     b = WavData.load(b_path).samples.astype(np.float64)
     check(a.shape == b.shape and np.isfinite(a).all(),
@@ -199,7 +238,7 @@ def lsb_apart(a_path, b_path):
 def phase_resample(port, key, d, smi):
     """9. 200 s at 32 kHz: add, cmp; resample to 48 kHz on the card, cmp.
     Returns K1's launches on each of the two paths."""
-    from audiowmark_tpu.io.wavdata import WavData
+    from audiowmark_tpu_torch.io.wavdata import WavData
     from audiowmark_tpu_torch.fixtures import gen_noise
     from audiowmark_tpu_torch.ops.resample import resample
     n32, wm32 = os.path.join(d, "n32.wav"), os.path.join(d, "wm32.wav")
@@ -279,7 +318,7 @@ def timed(fn):
 
 def phase_staged(key, d, smi):
     """12. the staged search vs the fused one on the card."""
-    from audiowmark_tpu.io.wavdata import WavData
+    from audiowmark_tpu_torch.io.wavdata import WavData
     from audiowmark_tpu_torch.models import syncfinder as sf
     from audiowmark_tpu_torch.models.decoder import ClipDecoder
     set_params()
@@ -319,7 +358,7 @@ def phase_long(port, key, d, smi):
     """13. 32 min: add (streaming), cmp over 2 chunks (tiled search);
     returns K1's launches over the add and cmp, and its check at the
     largest batch of that cmp."""
-    from audiowmark_tpu.params import Params
+    from audiowmark_tpu_torch.params import Params
     from audiowmark_tpu_torch.fixtures import long_noise
     from audiowmark_tpu_torch.models import embedder
     from audiowmark_tpu_torch.models import syncfinder as sf
@@ -384,10 +423,33 @@ def phase_long(port, key, d, smi):
           first_chunk_scores=n_scores, tiled_search_s=tiled_s,
           staged_search_s=staged_s, chunk_size_min=Params.get_chunk_size,
           k1_launches=launches, k1_batches=sorted(set(shapes)),
-          k1_check_batch=batch, k1_check_steps=steps, k1_max_abs_err=k1[0],
-          k1_ms=k1[2], plain_ms=k1[3], card=smi)
-    return launches, dict(batch=batch, steps=steps, max_abs_err=k1[0],
-                          ms=k1[2], plain_ms=k1[3])
+          k1_check=k1, card=smi)
+    return launches, k1
+
+
+def main_path(port, key, d, n200, wm200, smi):
+    """5.-7. 200 s add and cmp (cold, warm), the SNR, 60 s and 30 s."""
+    from audiowmark_tpu_torch.io.wavdata import WavData
+    for run in ("cold", "warm"):
+        add_s, get_s, _ = add_and_cmp(port, key, n200, wm200, 5)
+        phase("200s_" + run, add_s=add_s, get_s=get_s,
+              add_realtime=200 / add_s, get_realtime=200 / get_s, card=smi)
+
+    nolim = os.path.join(d, "wm_nolim.wav")
+    add_and_cmp(port, key, n200, nolim, 5, test_no_limiter=True)
+    o = WavData.load(n200).samples.astype(np.float64)
+    w = WavData.load(nolim).samples.astype(np.float64)
+    check(o.shape == w.shape and np.isfinite(w).all(),
+          "marked file has another length or non-finite samples")
+    snr = 10 * np.log10(np.sum(o * o) / np.sum((o - w) ** 2))
+    check(snr >= SNR_FLOOR_DB, "SNR %.3f dB < %.1f dB" % (snr, SNR_FLOOR_DB))
+    phase("snr", snr_db=snr, floor_db=SNR_FLOOR_DB)
+
+    for secs, expect in ((60, 3), (30, 1)):
+        add_s, get_s, _ = add_and_cmp(
+            port, key, os.path.join(d, "n%d.wav" % secs),
+            os.path.join(d, "wm%d.wav" % secs), expect)
+        phase("%ds" % secs, match_count=expect, add_s=add_s, get_s=get_s)
 
 
 def main() -> int:
@@ -397,8 +459,7 @@ def main() -> int:
         return 1
     t_script = time.perf_counter()
     import audiowmark_tpu_torch as port
-    from audiowmark_tpu.crypto.keys import Key
-    from audiowmark_tpu.io.wavdata import WavData
+    from audiowmark_tpu_torch.crypto.keys import Key
     from audiowmark_tpu_torch import cuda_build
     from audiowmark_tpu_torch.fixtures import gen_noise
     from audiowmark_tpu_torch.ops import frames, viterbi
@@ -421,14 +482,17 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = cuda_build.build("viterbi_acs")
     viterbi._library()
+    ptxas = [line.split("info    :")[-1].strip() for line in
+             cuda_build.ptxas_report("viterbi_acs").splitlines()
+             if "registers" in line or "spill" in line]
     phase("build", kernel="viterbi_acs", seconds=time.perf_counter() - t0,
-          library=os.path.relpath(lib_path, REPO))
+          library=os.path.relpath(lib_path, REPO), ptxas=ptxas)
 
     # ---- 3. K1 vs plain on the card ----
-    max_abs_err, n_nan, k1_ms, plain_ms = k1_check(0, K1_BATCH, K1_STEPS)
-    phase("k1_check", batch=K1_BATCH, steps=K1_STEPS, decisions_differ=0,
-          max_abs_err=max_abs_err, nan_metrics=n_nan, k1_ms=k1_ms,
-          plain_ms=plain_ms, card=smi)
+    checks = []
+    for batch in K1_BATCHES:
+        checks.append(k1_check(batch, batch, K1_STEPS))
+        phase("k1_check", decisions_differ=0, card=smi, **checks[-1])
 
     # ---- 4. add core: card vs CPU on a small input ----
     rng = np.random.RandomState(0)
@@ -456,35 +520,21 @@ def main() -> int:
         phase("fixtures", seconds=time.perf_counter() - t0)
 
         # ---- 5.-7. the main path; K1's launch count starts at 0 here ----
-        viterbi.LAUNCHES = 0
         n200, wm200 = os.path.join(d, "n200.wav"), os.path.join(d, "wm.wav")
-        for run in ("cold", "warm"):
-            add_s, get_s, _ = add_and_cmp(port, key, n200, wm200, 5)
-            phase("200s_" + run, add_s=add_s, get_s=get_s,
-                  add_realtime=200 / add_s, get_realtime=200 / get_s,
-                  card=smi)
-
-        nolim = os.path.join(d, "wm_nolim.wav")
-        add_and_cmp(port, key, n200, nolim, 5, test_no_limiter=True)
-        o = WavData.load(n200).samples.astype(np.float64)
-        w = WavData.load(nolim).samples.astype(np.float64)
-        check(o.shape == w.shape and np.isfinite(w).all(),
-              "marked file has another length or non-finite samples")
-        snr = 10 * np.log10(np.sum(o * o) / np.sum((o - w) ** 2))
-        check(snr >= SNR_FLOOR_DB, "SNR %.3f dB < %.1f dB" % (snr,
-                                                              SNR_FLOOR_DB))
-        phase("snr", snr_db=snr, floor_db=SNR_FLOOR_DB)
-
-        for secs, expect in ((60, 3), (30, 1)):
-            add_s, get_s, _ = add_and_cmp(
-                port, key, os.path.join(d, "n%d.wav" % secs),
-                os.path.join(d, "wm%d.wav" % secs), expect)
-            phase("%ds" % secs, match_count=expect, add_s=add_s, get_s=get_s)
+        viterbi.LAUNCHES = 0
+        _, shapes = batches_of(
+            lambda: main_path(port, key, d, n200, wm200, smi))
 
         # ---- 8. the main path went through K1 ----
         paths = {"main": viterbi.LAUNCHES}
         check(paths["main"] > 0, "the main path never launched K1")
-        phase("launches", viterbi_acs=paths["main"])
+        batch, steps = max(shapes)
+        checks.append(k1_check(2, batch, steps))
+        prep_ms = bm_prep_ms(batch, steps)
+        phase("launches", viterbi_acs=paths["main"],
+              k1_batches=sorted(set(shapes)), k1_check=checks[-1],
+              bm_prep_ms=prep_ms, card=smi)
+        main_check = checks[-1]
 
         # ---- 9.-13. any rate, the streaming add, --test-no-sync, the
         # staged and the tiled search; each path counts K1 on its own ----
@@ -497,9 +547,11 @@ def main() -> int:
               k1_launches=paths["no_sync"], card=smi)
         phase_staged(key, d, smi)
         paths["long_32min"], long_check = phase_long(port, key, d, smi)
+        checks.append(long_check)
 
     phase("total", seconds=time.perf_counter() - t_script, card=smi)
 
+    # the headline numbers are those at the main path's largest batch
     print(json.dumps({"kernels": [{
         "name": "viterbi_acs",
         "route": "cuda",
@@ -507,12 +559,18 @@ def main() -> int:
         "replaces": "audiowmark_tpu/ops/viterbi_pallas.py:128",
         "launches": sum(paths.values()),
         "launches_by_path": paths,
-        "max_abs_err": max(max_abs_err, long_check["max_abs_err"]),
-        "ms": k1_ms,
-        "plain_ms": plain_ms,
-        "checks": [dict(batch=K1_BATCH, steps=K1_STEPS,
-                        max_abs_err=max_abs_err, ms=k1_ms,
-                        plain_ms=plain_ms), long_check],
+        "max_abs_err": max(c["max_abs_err"] for c in checks),
+        "ms": main_check["ms"],
+        "plain_ms": main_check["plain_ms"],
+        "bound_ms": main_check["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "batch": main_check["batch"],
+        "steps": main_check["steps"],
+        "cluster": main_check["cluster"],
+        "share": main_check["share"],
+        "bm_prep_ms": prep_ms,
+        "checks": checks,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -3,7 +3,8 @@ the streaming resampler, the 48 kHz streaming add and the staged search on
 the card vs the port on the CPU.
 
 Every test here needs the card and skips without one.  This file imports
-no jax, so it runs where jax is absent, without the repo's conftest:
+no jax and nothing of the JAX package, so it runs where jax is absent,
+without the repo's conftest:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
@@ -15,12 +16,12 @@ import numpy as np
 import pytest
 import torch
 
-from audiowmark_tpu.crypto.keys import Key
-from audiowmark_tpu.io.wavdata import WavData
-from audiowmark_tpu.params import Params
 from audiowmark_tpu_torch import add_watermark, get_watermark
-from audiowmark_tpu_torch.fixtures import acs_check_metrics
+from audiowmark_tpu_torch.crypto.keys import Key
+from audiowmark_tpu_torch.fixtures import acs_check_metrics, acs_equal
+from audiowmark_tpu_torch.io.wavdata import WavData
 from audiowmark_tpu_torch.ops import frames, viterbi
+from audiowmark_tpu_torch.params import Format, Params
 
 pytestmark = pytest.mark.cuda
 MSG = "f0f0f0f0f0f0f0f0f0f0f0f0f0f0f0f0"
@@ -38,8 +39,8 @@ def card():
 def test_kernel_matches_plain_on_card():
     """K1 vs the plain trellis, both on the card, at the main path's 143
     steps, on clean codewords of each block type (exact ties), an all-NaN
-    row and random rows: decisions, final metrics (NaN equal to NaN) and
-    bits exact."""
+    row and random rows: decisions (packed, and unpacked to one int8 per
+    state), final metrics (NaN equal to NaN) and bits exact."""
     bm = acs_check_metrics(1, 6, 143, "cuda")
     before = viterbi.LAUNCHES
     dec, met, bits = viterbi.viterbi_acs(bm)
@@ -47,9 +48,53 @@ def test_kernel_matches_plain_on_card():
     pdec, pmet, pbits = viterbi.viterbi_acs_plain(bm)
     torch.cuda.synchronize()
     assert torch.equal(dec, pdec)
+    assert torch.equal(viterbi.unpack_decisions(dec),
+                       viterbi.unpack_decisions(pdec))
     torch.testing.assert_close(met, pmet, rtol=0, atol=0, equal_nan=True)
     assert torch.equal(bits, pbits)
     assert torch.isnan(met[3]).all()
+
+
+@pytest.mark.parametrize("steps", [1, 17, 143])
+@pytest.mark.parametrize("batch", [1, 3, 16, 52, 140])
+def test_kernel_matches_plain_at_every_batch(batch, steps):
+    """K1 at the cluster size each B picks (printed) vs the plain version,
+    bit for bit; 140 rows at C = 2 run in more than one wave."""
+    bm = acs_check_metrics(batch + steps, batch, steps, "cuda")
+    assert acs_equal(viterbi.viterbi_acs(bm), viterbi.viterbi_acs_plain(bm))
+    cluster = viterbi.cluster_size(
+        batch, torch.cuda.get_device_properties(0).multi_processor_count)
+    active = viterbi.launch(bm, *viterbi.outputs(bm), cluster)
+    print("B=%d steps=%d: %d CTAs per row, %d clusters at once"
+          % (batch, steps, cluster, active))
+    if batch == 140:
+        assert batch > active
+
+
+@pytest.mark.parametrize("cluster", viterbi.CLUSTER_SIZES)
+def test_kernel_matches_plain_at_every_cluster_size(cluster):
+    bm = acs_check_metrics(cluster, 5, 40, "cuda")
+    outs = viterbi.outputs(bm)
+    assert viterbi.launch(bm, *outs, cluster) > 0
+    assert acs_equal(outs, viterbi.viterbi_acs_plain(bm))
+
+
+def test_wrapper_limits_raise():
+    """Each limit of the kernel raises a ValueError that names it: the
+    16-byte alignment of cp.async.bulk, the step and row counts the
+    kernel's 32-bit counters take, the cluster sizes."""
+    S = viterbi.STATE_COUNT
+    flat = torch.zeros(2 * 3 * S + 1, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        viterbi.viterbi_acs(flat[1:].view(2, 3, S))
+    row = torch.zeros(1, 1, S, device="cuda")
+    with pytest.raises(ValueError, match="MAX_STEPS"):
+        viterbi.viterbi_acs(row.expand(1, viterbi.MAX_STEPS + 1, S))
+    with pytest.raises(ValueError, match="MAX_BATCH"):
+        viterbi.viterbi_acs(row.expand(viterbi.MAX_BATCH + 1, 1, S))
+    bm = torch.zeros(1, 2, S, device="cuda")
+    with pytest.raises(ValueError, match="cluster"):
+        viterbi.launch(bm, *viterbi.outputs(bm), 16)
 
 
 def test_add_core_on_card_matches_cpu():
@@ -147,7 +192,6 @@ def test_streaming_add_and_staged_search_on_card_match_cpu(tmp_path):
     resampler pair) on the card vs on the CPU, within 1 LSB; then the
     staged and the fused search of the card's file, on the card, equal
     the CPU's staged search.  Geometry of tests/test_torch_slice.py."""
-    from audiowmark_tpu.params import Format
     from audiowmark_tpu_torch.models import syncfinder as sf
     Params.sync_frames_per_bit = 30
     Params.frames_per_bit = 1

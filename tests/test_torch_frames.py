@@ -19,19 +19,29 @@ import torch
 import jax.numpy as jnp
 
 from audiowmark_tpu import tables as jtables
-from audiowmark_tpu.crypto.keys import Key
+from audiowmark_tpu.crypto.keys import Key as JKey
 from audiowmark_tpu.models.common import build_ab_frame_mods
 from audiowmark_tpu.ops import frames as jframes
 from audiowmark_tpu.ops.limiter import StreamingLimiter as JLimiter
-from audiowmark_tpu.params import Params
+from audiowmark_tpu.params import Params as JParams
 from audiowmark_tpu_torch.ops import frames as tframes
 from audiowmark_tpu_torch.ops.limiter import StreamingLimiter as TLimiter
+from audiowmark_tpu_torch.params import Params as TParams
 
 torch.set_num_threads(2)
 FRAME = tframes.FRAME
 N_FRAMES, C = 40, 2
 # at most this share of int16 samples may sit 1 LSB apart
 MAX_LSB_SHARE = 1e-3
+
+
+@pytest.fixture(autouse=True)
+def _reset_params():
+    JParams.reset()
+    TParams.reset()
+    yield
+    JParams.reset()
+    TParams.reset()
 
 
 def _inputs(seed, in_i16):
@@ -44,7 +54,7 @@ def _inputs(seed, in_i16):
     else:
         x = ((rng.rand(n) * 2 - 1) * 0.9).astype(np.float32)
         x[n // 3: n // 3 + 4000] = 1.2
-    tables = jtables.get_key_tables(Key())
+    tables = jtables.get_key_tables(JKey())
     mods = build_ab_frame_mods(
         tables, np.array([1, 0] * 64, np.int32))[300:300 + N_FRAMES]
     return x, np.ascontiguousarray(mods)
@@ -57,12 +67,13 @@ def _inputs(seed, in_i16):
 def test_add_core_matches_jax(in_i16, out_i16, no_limiter, block_size):
     x, mods = _inputs(block_size + 2 * in_i16 + out_i16, in_i16)
     n_out = x.size - 3 * C          # trailing partial frame is cut
-    wd = Params.water_delta
+    wd = JParams.water_delta
+    assert TParams.water_delta == wd
     want = np.asarray(jframes._add_file_core(
         jnp.asarray(x), jnp.asarray(mods), jnp.float32(wd),
         jnp.asarray(jframes.analysis_window()),
         jnp.asarray(jframes.synthesis_window()),
-        jnp.float32(Params.limiter_ceiling), N_FRAMES, C, n_out,
+        jnp.float32(JParams.limiter_ceiling), N_FRAMES, C, n_out,
         no_limiter, in_i16, out_i16, block_size))
     xf = x.astype(np.float32) * np.float32(1.0 / 32768.0) if in_i16 else x
     got = tframes.add_file_core(

@@ -19,14 +19,15 @@ import numpy as np
 import pytest
 import torch
 
-from audiowmark_tpu.io.wavdata import WavData
 from audiowmark_tpu.models import chunkloader as jchunk
 from audiowmark_tpu.models import embedder as jemb
 from audiowmark_tpu.ops import resample as jres
-from audiowmark_tpu.params import Params
+from audiowmark_tpu.params import Params as JParams
+from audiowmark_tpu_torch.io.wavdata import WavData
 from audiowmark_tpu_torch.models import chunkloader as tchunk
 from audiowmark_tpu_torch.models import embedder as temb
 from audiowmark_tpu_torch.ops import resample as tres
+from audiowmark_tpu_torch.params import Params as TParams
 
 torch.set_num_threads(2)
 ATOL = 1e-6
@@ -35,9 +36,11 @@ RATES = [(48000, 44100), (44100, 48000), (32000, 44100), (44100, 32000)]
 
 @pytest.fixture(autouse=True)
 def _reset_params():
-    Params.reset()
+    JParams.reset()
+    TParams.reset()
     yield
-    Params.reset()
+    JParams.reset()
+    TParams.reset()
 
 
 def _noise(seed, frames):
@@ -141,7 +144,8 @@ def test_skip_matches_jax(old, new, zeros):
 @pytest.mark.parametrize("rate", [44100, 48000, 32000, 22050, 96000])
 @pytest.mark.parametrize("no_limiter", [True, False])
 def test_generator_frame_cap_matches_jax(rate, no_limiter):
-    block = rate * int(Params.limiter_block_size_ms) // 1000
+    block = rate * int(TParams.limiter_block_size_ms) // 1000
+    assert TParams.limiter_block_size_ms == JParams.limiter_block_size_ms
     for seconds in (0.0, 0.5, 7.3, 61.0):
         n = int(rate * seconds)
         assert temb._ref_generator_frame_cap(n, rate, no_limiter, block) \

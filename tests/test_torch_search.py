@@ -8,7 +8,10 @@ Candidate steps `t`, refined positions and eligibility must be exact;
 qualities within rtol 2e-4, atol 2e-5 (as tests/test_search_fused.py:38:
 the spectra come from another FFT library, and the port sums per-bit
 scores in another order); raw soft bits, sums of ~60 dB differences, within
-rtol 1e-4, atol 1e-3."""
+rtol 1e-4, atol 1e-3.
+
+Each package reads its own Params (the same geometry is set on both) and
+gets its own Key."""
 
 import numpy as np
 import pytest
@@ -17,32 +20,43 @@ import torch
 import jax.numpy as jnp
 
 from audiowmark_tpu import tables as jtables
-from audiowmark_tpu.crypto.keys import Key
-from audiowmark_tpu.io.wavdata import WavData
+from audiowmark_tpu.crypto.keys import Key as JKey
 from audiowmark_tpu.models.embedder import add_watermark as j_add
 from audiowmark_tpu.ops import search_fused as jsf
 from audiowmark_tpu.ops.extract import block_raw_one
 from audiowmark_tpu.ops.frames import analysis_window
-from audiowmark_tpu.params import Params
+from audiowmark_tpu.params import Params as JParams
 from audiowmark_tpu_torch import tables as ttables
+from audiowmark_tpu_torch.crypto.keys import Key as TKey
+from audiowmark_tpu_torch.io.wavdata import WavData
+from audiowmark_tpu_torch.params import Params as TParams
 from audiowmark_tpu_torch.models import syncfinder as tsf_models
 from audiowmark_tpu_torch.models.decoder import ClipDecoder
 from audiowmark_tpu_torch.ops import search_fused as tsf
 from audiowmark_tpu_torch.ops.extract import block_raw
 
 torch.set_num_threads(2)
-FRAME = Params.frame_size
+FRAME = TParams.frame_size
 SECONDS = 80
 
 
+def _reset():
+    JParams.reset()
+    TParams.reset()
+
+
 def _geometry():
-    Params.sync_frames_per_bit = 30
-    Params.frames_per_bit = 1
+    for params in (JParams, TParams):
+        params.sync_frames_per_bit = 30
+        params.frames_per_bit = 1
 
 
 @pytest.fixture(autouse=True)
 def geometry():
+    _reset()
     _geometry()
+    yield
+    _reset()
 
 
 @pytest.fixture(scope="module")
@@ -54,17 +68,16 @@ def marked(tmp_path_factory):
     n = SECONDS * 44100 * 2
     WavData(((rng.rand(n) * 2 - 1) * 0.5).astype(np.float32), 2, 44100,
             16).save(str(d / "n.wav"))
-    assert j_add(Key(), str(d / "n.wav"), str(d / "wm.wav"), "f0" * 16) == 0
-    Params.reset()
+    assert j_add(JKey(), str(d / "n.wav"), str(d / "wm.wav"), "f0" * 16) == 0
+    _reset()
     return WavData.load(str(d / "wm.wav"))
 
 
 def _run_both(samples, clip):
     C = 2
-    key = Key()
     true_frames = samples.size // C
     F = true_frames // FRAME
-    jt = jtables.get_key_tables(key)
+    jt = jtables.get_key_tables(JKey())
     total = jt.frames_per_block * (2 if clip else 1)
     T = tsf.bucket_frames(F)
     assert T == jsf.bucket_frames(F)
@@ -83,7 +96,7 @@ def _run_both(samples, clip):
         jnp.asarray(x), np.int32(n_starts), np.int32(true_frames),
         np.int32(sil[0]), np.int32(sil[1]), np.int32(0),
         np.int32(n_starts_s)).items()}
-    searcher = tsf.SyncSearcher(ttables.get_key_tables(key), clip, "cpu")
+    searcher = tsf.SyncSearcher(ttables.get_key_tables(TKey()), clip, "cpu")
     got = {k: v.numpy() for k, v in searcher(
         torch.from_numpy(x), C, K, n_starts, true_frames, sil[0],
         sil[1], 0, n_starts_s).items()}
@@ -107,17 +120,17 @@ def test_block_search_matches_jax(marked):
     got, want = _run_both(marked.samples, clip=False)
     _assert_same(got, want)
     # the three marked blocks are among the eligible candidates
-    fpb = jtables.get_key_tables(Key()).frames_per_block
+    fpb = jtables.get_key_tables(JKey()).frames_per_block
     rpos = got["refined_pos"][got["eligible"]]
     for b in range(3):
-        expect = (Params.frames_pad_start + b * fpb) * FRAME
+        expect = (JParams.frames_pad_start + b * fpb) * FRAME
         assert np.min(np.abs(rpos - expect)) < FRAME // 2, b
 
 
 def test_clip_search_matches_jax(marked):
     """CLIP mode on the zero-padded start window the clip decoder builds
     (silence bounds mask the padding)."""
-    window, _ = ClipDecoder(1)._build_window([Key()], marked, "start")
+    window, _ = ClipDecoder(1)._build_window([TKey()], marked, "start")
     got, want = _run_both(window.samples, clip=True)
     _assert_same(got, want)
 
@@ -126,30 +139,30 @@ def test_clip_search_matches_jax(marked):
 def test_block_raw_matches_block_raw_one(marked, mix):
     """Mix-scatter and linear layouts; the last start reads past the end
     and is clamped like dynamic_slice."""
-    tables = jtables.get_key_tables(Key())
+    tables = jtables.get_key_tables(JKey())
     count = tables.frames_per_block
     x = marked.samples
     n = x.size // 2
     starts = [0, 250 * FRAME + 17, n - count * FRAME, n]
     if mix:
-        lay = (tables.mix_frame, tables.mix_up - Params.min_band,
-               tables.mix_dn - Params.min_band)
-        group = Params.bands_per_frame * Params.frames_per_bit
+        lay = (tables.mix_frame, tables.mix_up - JParams.min_band,
+               tables.mix_dn - JParams.min_band)
+        group = JParams.bands_per_frame * JParams.frames_per_bit
     else:
         lay = (tables.data_frame(np.arange(tables.n_data_frames)),
-               tables.data_up - Params.min_band,
-               tables.data_dn - Params.min_band)
+               tables.data_up - JParams.min_band,
+               tables.data_dn - JParams.min_band)
         group = 0
     want = np.stack([np.asarray(block_raw_one(
         jnp.asarray(x), jnp.int32(s), jnp.asarray(analysis_window()),
         jnp.zeros(1), *(jnp.asarray(a.astype(np.int32)) for a in lay),
-        count, 0, mix, group, Params.frames_per_bit, 2))
+        count, 0, mix, group, JParams.frames_per_bit, 2))
         for s in starts])
     got = block_raw(
         torch.from_numpy(x).reshape(-1, 2), torch.tensor(starts),
         torch.from_numpy(analysis_window()),
         *(torch.from_numpy(a.astype(np.int64)) for a in lay), count, mix,
-        group, Params.frames_per_bit).numpy()
+        group, TParams.frames_per_bit).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
 
 

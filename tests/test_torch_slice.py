@@ -18,8 +18,12 @@ A, B, A and `cmp` finds 5 matches (A, B, A, AB, all) with either package.
   instead of padding to 4096 (~87 s of audio at 48 kHz to resample).
 * a get over 2 chunks (Params.get_chunk_size 1.25 min, above the 2-block
   overlap of ~63 s) and a --test-no-sync get: reports equal the JAX ones.
-* the port imports and runs with jax blocked from import, a resampled
-  streaming add included.
+* the port imports and runs with jax and the JAX package blocked from
+  import, a resampled streaming add included.
+
+Each package reads its own settings: every test sets the same geometry
+on the JAX package's Params and the port's, and hands each side its own
+Key.
 """
 
 import os
@@ -30,13 +34,15 @@ import numpy as np
 import pytest
 import torch
 
-from audiowmark_tpu.crypto.keys import Key
-from audiowmark_tpu.io.wavdata import WavData
+from audiowmark_tpu.crypto.keys import Key as JKey
 from audiowmark_tpu.models.embedder import add_watermark as j_add
 from audiowmark_tpu.models.getter import get_watermark as j_get
-from audiowmark_tpu.params import Format, Params
+from audiowmark_tpu.params import Params as JParams
 from audiowmark_tpu_torch import add_watermark as t_add
 from audiowmark_tpu_torch import get_watermark as t_get
+from audiowmark_tpu_torch.crypto.keys import Key as TKey
+from audiowmark_tpu_torch.io.wavdata import WavData
+from audiowmark_tpu_torch.params import Format, Params as TParams
 
 torch.set_num_threads(2)
 MSG = "f0f0f0f0f0f0f0f0f0f0f0f0f0f0f0f0"
@@ -44,14 +50,28 @@ SECONDS = 80
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _set(**values):
+    """The same settings on the JAX package's Params and the port's."""
+    for params in (JParams, TParams):
+        for name, value in values.items():
+            setattr(params, name, value)
+
+
+def _reset():
+    JParams.reset()
+    TParams.reset()
+
+
 def _geometry():
-    Params.sync_frames_per_bit = 30
-    Params.frames_per_bit = 1
+    _set(sync_frames_per_bit=30, frames_per_bit=1)
 
 
 @pytest.fixture(autouse=True)
 def geometry():
+    _reset()
     _geometry()
+    yield
+    _reset()
 
 
 @pytest.fixture(scope="module")
@@ -63,16 +83,21 @@ def files(tmp_path_factory):
     paths = {k: str(d / (k + ".wav")) for k in ("noise", "jax", "port")}
     WavData(((rng.rand(n) * 2 - 1) * 0.5).astype(np.float32), 2, 44100,
             16).save(paths["noise"])
-    assert j_add(Key(), paths["noise"], paths["jax"], MSG) == 0
-    assert t_add(Key(), paths["noise"], paths["port"], MSG,
+    assert j_add(JKey(), paths["noise"], paths["jax"], MSG) == 0
+    assert t_add(TKey(), paths["noise"], paths["port"], MSG,
                  device="cpu") == 0
-    Params.reset()
+    _reset()
     return paths
 
 
 def _report(get, path, capsys, **kw):
+    """(rc, stdout) of j_get, or of t_get on the CPU, each with its own
+    package's default Key."""
     capsys.readouterr()
-    rc = get([Key()], path, MSG, **kw)
+    if get is t_get:
+        rc = t_get([TKey()], path, MSG, device="cpu", **kw)
+    else:
+        rc = j_get([JKey()], path, MSG, **kw)
     return rc, capsys.readouterr().out
 
 
@@ -106,7 +131,7 @@ def test_add_matches_jax(files):
 
 def test_get_report_matches_jax(files, capsys):
     j_rc, j_out = _report(j_get, files["jax"], capsys)
-    t_rc, t_out = _report(t_get, files["jax"], capsys, device="cpu")
+    t_rc, t_out = _report(t_get, files["jax"], capsys)
     assert j_rc == t_rc == 0
     je, jf, jc = _patterns(j_out)
     te, tf, tc = _patterns(t_out)
@@ -117,8 +142,8 @@ def test_get_report_matches_jax(files, capsys):
 
 def test_cross_decode(files, capsys):
     _, jax_on_port = _report(j_get, files["port"], capsys)
-    _, port_on_jax = _report(t_get, files["jax"], capsys, device="cpu")
-    _, port_on_port = _report(t_get, files["port"], capsys, device="cpu")
+    _, port_on_jax = _report(t_get, files["jax"], capsys)
+    _, port_on_port = _report(t_get, files["port"], capsys)
     counts = [_patterns(o)[2][0].split()[1]
               for o in (jax_on_port, port_on_jax, port_on_port)]
     assert counts == ["5", "5", "5"]
@@ -129,14 +154,13 @@ def test_short_payload_cross_decode(files, capsys, tmp_path):
     Viterbi): the port marks, both packages decode with equal match
     counts.  61-bit codewords give 456 + 180 = 636 frames per block, so the
     80 s file holds 5 blocks."""
-    Params.payload_short = True
-    Params.payload_size = 16
+    _set(payload_short=True, payload_size=16)
     wm = str(tmp_path / "short.wav")
-    assert t_add(Key(), files["noise"], wm, "abcd", device="cpu") == 0
+    assert t_add(TKey(), files["noise"], wm, "abcd", device="cpu") == 0
     capsys.readouterr()
-    assert j_get([Key()], wm, "abcd") == 0
+    assert j_get([JKey()], wm, "abcd") == 0
     jax_out = capsys.readouterr().out
-    assert t_get([Key()], wm, "abcd", device="cpu") == 0
+    assert t_get([TKey()], wm, "abcd", device="cpu") == 0
     port_out = capsys.readouterr().out
     je, _, jc = _patterns(jax_out)
     te, _, tc = _patterns(port_out)
@@ -156,10 +180,10 @@ def test_unported_paths_raise(files):
     """Speed detection is the one path of add and get still unported."""
     for name, value in (("detect_speed", True), ("detect_speed_patient", True),
                         ("try_speed", 1.01)):
-        Params.reset()
-        setattr(Params, name, value)
+        TParams.reset()
+        setattr(TParams, name, value)
         with pytest.raises(NotImplementedError, match="speed detection"):
-            t_get([Key()], files["port"], MSG, device="cpu")
+            t_get([TKey()], files["port"], MSG, device="cpu")
 
 
 def test_48k_add_get_matches_jax(tmp_path, capsys):
@@ -169,14 +193,14 @@ def test_48k_add_get_matches_jax(tmp_path, capsys):
     marked = str(tmp_path / "wm48.wav")
     rng = np.random.RandomState(48)
     (rng.randint(-16000, 16000, 32 * 48000 * 2).astype("<i2").tofile(raw))
-    Params.input_format = Format.RAW
-    Params.raw_input_format.set_sample_rate(48000)
-    assert t_add(Key(), raw, marked, MSG, device="cpu") == 0
-    Params.reset()
+    TParams.input_format = Format.RAW
+    TParams.raw_input_format.set_sample_rate(48000)
+    assert t_add(TKey(), raw, marked, MSG, device="cpu") == 0
+    _reset()
     _geometry()
     assert WavData.load(marked).sample_rate == 48000
     j_rc, j_out = _report(j_get, marked, capsys)
-    t_rc, t_out = _report(t_get, marked, capsys, device="cpu")
+    t_rc, t_out = _report(t_get, marked, capsys)
     assert j_rc == t_rc == 0
     _assert_same_report(j_out, t_out)
 
@@ -186,9 +210,9 @@ def test_48k_add_get_matches_jax(tmp_path, capsys):
 def test_get_variant_matches_jax(files, capsys, name, value):
     """Two chunks (0-75 s and 12.3-80 s), or the fixed block positions of
     --test-no-sync (whose scores carry no raws: the decoder extracts)."""
-    setattr(Params, name, value)
+    _set(**{name: value})
     j_rc, j_out = _report(j_get, files["jax"], capsys)
-    t_rc, t_out = _report(t_get, files["jax"], capsys, device="cpu")
+    t_rc, t_out = _report(t_get, files["jax"], capsys)
     assert j_rc == t_rc == 0
     _assert_same_report(j_out, t_out)
 
@@ -197,15 +221,15 @@ _NO_JAX = r"""
 import sys
 class _BlockJax:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
-            raise ImportError("jax is blocked")
+        if name.split(".")[0] in ("jax", "jaxlib", "audiowmark_tpu"):
+            raise ImportError(name + " is blocked")
 sys.meta_path.insert(0, _BlockJax())
 import numpy as np
 import torch
 torch.set_num_threads(2)
-from audiowmark_tpu.crypto.keys import Key
-from audiowmark_tpu.io.wavdata import WavData
-from audiowmark_tpu.params import Params
+from audiowmark_tpu_torch.crypto.keys import Key
+from audiowmark_tpu_torch.io.wavdata import WavData
+from audiowmark_tpu_torch.params import Params
 import audiowmark_tpu_torch as port
 Params.sync_frames_per_bit = 30
 Params.frames_per_bit = 1
@@ -217,7 +241,7 @@ assert port.add_watermark(Key(), d + "/n.wav", d + "/wm.wav", "ab" * 16,
                           device="cpu") == 0
 assert port.get_watermark([Key()], d + "/wm.wav", "ab" * 16,
                           device="cpu") == 0
-from audiowmark_tpu.params import Format
+from audiowmark_tpu_torch.params import Format
 from audiowmark_tpu_torch.models import chunkloader, embedder, syncfinder
 from audiowmark_tpu_torch.ops import resample, sync
 from audiowmark_tpu_torch import profile_cells
@@ -229,13 +253,15 @@ assert port.add_watermark(Key(), d + "/n48.raw", d + "/wm48.wav", "ab" * 16,
                           device="cpu") == 0
 Params.input_format = Format.AUTO
 assert WavData.load(d + "/wm48.wav").n_frames == 2 * 48000
-assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+assert not [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "audiowmark_tpu")]
 print("NO_JAX_OK")
 """
 
 
 def test_port_runs_without_jax(tmp_path):
-    """A tiny add + cmp in a fresh interpreter where importing jax fails
+    """A tiny add + cmp in a fresh interpreter where importing jax or the
+    JAX package fails
     (30 s: one block, found by the block and the clip decoder; cmp
     returns 0 only when it matches), then the modules of the resampler,
     the streaming add, the staged search and the profile script, and a

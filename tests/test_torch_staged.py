@@ -13,6 +13,9 @@ package holds blocks A, B, A.
   tests/test_search_fused.py:38), on the same spectrogram.
 * searches: positions, indices and block types exact; qualities within
   rtol 2e-4, atol 2e-5.
+
+Each package reads its own Params (the same geometry is set on both) and
+gets its own Key and WavData of the same samples.
 """
 
 import numpy as np
@@ -20,14 +23,17 @@ import pytest
 import torch
 
 from audiowmark_tpu import tables as jtables
-from audiowmark_tpu.crypto.keys import Key
-from audiowmark_tpu.io.wavdata import WavData
+from audiowmark_tpu.crypto.keys import Key as JKey
+from audiowmark_tpu.io.wavdata import WavData as JWavData
 from audiowmark_tpu.models import syncfinder as jsf
 from audiowmark_tpu.models.decoder import ClipDecoder
 from audiowmark_tpu.models.embedder import add_watermark as j_add
 from audiowmark_tpu.ops import sync as jsync
-from audiowmark_tpu.params import Params
+from audiowmark_tpu.params import Params as JParams
 from audiowmark_tpu_torch import tables as ttables
+from audiowmark_tpu_torch.crypto.keys import Key as TKey
+from audiowmark_tpu_torch.io.wavdata import WavData
+from audiowmark_tpu_torch.params import Params as TParams
 from audiowmark_tpu_torch.models import syncfinder as tsf
 from audiowmark_tpu_torch.ops import sync as tsync
 
@@ -36,17 +42,29 @@ SECONDS = 80
 Q_TOL = dict(rtol=2e-4, atol=2e-5)
 
 
+def _reset():
+    JParams.reset()
+    TParams.reset()
+
+
 def _geometry():
-    Params.sync_frames_per_bit = 30
-    Params.frames_per_bit = 1
+    for params in (JParams, TParams):
+        params.sync_frames_per_bit = 30
+        params.frames_per_bit = 1
+
+
+def _jwav(wav):
+    """The JAX package's WavData of the same samples."""
+    return JWavData(wav.samples, wav.n_channels, wav.sample_rate,
+                    wav.bit_depth)
 
 
 @pytest.fixture(autouse=True)
 def geometry():
-    Params.reset()
+    _reset()
     _geometry()
     yield
-    Params.reset()
+    _reset()
 
 
 @pytest.fixture(scope="module")
@@ -58,8 +76,8 @@ def marked(tmp_path_factory):
     n = SECONDS * 44100 * 2
     WavData(((rng.rand(n) * 2 - 1) * 0.5).astype(np.float32), 2, 44100,
             16).save(str(d / "n.wav"))
-    assert j_add(Key(), str(d / "n.wav"), str(d / "wm.wav"), "f0" * 16) == 0
-    Params.reset()
+    assert j_add(JKey(), str(d / "n.wav"), str(d / "wm.wav"), "f0" * 16) == 0
+    _reset()
     return WavData.load(str(d / "wm.wav"))
 
 
@@ -67,7 +85,9 @@ def marked(tmp_path_factory):
 def clip_window(marked):
     """The zero-padded start window the clip decoder searches."""
     _geometry()
-    return ClipDecoder(1)._build_window([Key()], marked, "start")[0]
+    window = ClipDecoder(1)._build_window([JKey()], _jwav(marked), "start")[0]
+    return WavData(window.samples, window.n_channels, window.sample_rate,
+                   window.bit_depth)
 
 
 def _x(wav):
@@ -75,9 +95,9 @@ def _x(wav):
 
 
 def _sync_bits(clip):
-    key = Key()
-    return (jsync.build_sync_bits(jtables.get_key_tables(key), clip),
-            tsync.device_sync_bits(ttables.get_key_tables(key), clip, "cpu"))
+    return (jsync.build_sync_bits(jtables.get_key_tables(JKey()), clip),
+            tsync.device_sync_bits(ttables.get_key_tables(TKey()), clip,
+                                   "cpu"))
 
 
 def _assert_same(got, want):
@@ -132,7 +152,7 @@ def test_refine_grid_matches_jax(marked, clip_window, clip):
     bounds = tsf._scan_silence(wav.samples) if clip else None
     jb, tb = _sync_bits(clip)
     n = wav.samples.size // 2
-    span = jb.total_frames * Params.frame_size
+    span = jb.total_frames * TParams.frame_size
     bases = np.array([250 * 1024, 250 * 1024 + 777, 0, 100,
                       n - span - 100, n - span + 256], np.int64)
     pos_j, q_j = jsync.refine_grid(wav.samples, 2, bases, jb, bounds)
@@ -149,23 +169,23 @@ def test_search_staged_matches_jax(marked, clip_window, clip):
     wav = clip_window if clip else marked
     mode_j = jsf.SyncMode.CLIP if clip else jsf.SyncMode.BLOCK
     mode_t = tsf.SyncMode.CLIP if clip else tsf.SyncMode.BLOCK
-    want = jsf.search_staged([Key()], wav, mode_j)
-    got = tsf.search_staged([Key()], wav, mode_t, "cpu")
+    want = jsf.search_staged([JKey()], _jwav(wav), mode_j)
+    got = tsf.search_staged([TKey()], wav, mode_t, "cpu")
     _assert_same(got, want)
     assert got[0].sync_scores
     assert all(s.raw is None for s in got[0].sync_scores)
 
 
 def test_no_sync_matches_jax(marked):
-    Params.test_no_sync = True
-    want = jsf.search([Key()], marked, jsf.SyncMode.BLOCK)
-    got = tsf.search([Key()], marked, tsf.SyncMode.BLOCK, "cpu")
+    JParams.test_no_sync = TParams.test_no_sync = True
+    want = jsf.search([JKey()], _jwav(marked), jsf.SyncMode.BLOCK)
+    got = tsf.search([TKey()], marked, tsf.SyncMode.BLOCK, "cpu")
     assert [(s.index, s.quality, s.block_type.name, s.raw)
             for s in got[0].sync_scores] \
         == [(s.index, s.quality, s.block_type.name, None)
             for s in want[0].sync_scores]
     assert len(got[0].sync_scores) == 3
-    assert tsf.search([Key()], marked, tsf.SyncMode.CLIP,
+    assert tsf.search([TKey()], marked, tsf.SyncMode.CLIP,
                       "cpu")[0].sync_scores == []
 
 
@@ -177,9 +197,9 @@ def test_fused_none_falls_back_to_staged(marked, clip_window, clip,
     wav = clip_window if clip else marked
     monkeypatch.setattr(jsf, "_search_fused_one", lambda *a: None)
     monkeypatch.setattr(tsf, "_search_fused_one", lambda *a: None)
-    want = jsf.search([Key()], wav,
+    want = jsf.search([JKey()], _jwav(wav),
                       jsf.SyncMode.CLIP if clip else jsf.SyncMode.BLOCK)
-    got = tsf.search([Key()], wav,
+    got = tsf.search([TKey()], wav,
                      tsf.SyncMode.CLIP if clip else tsf.SyncMode.BLOCK,
                      "cpu")
     _assert_same(got, want)
@@ -189,9 +209,9 @@ def test_fused_none_falls_back_to_staged(marked, clip_window, clip,
 def test_port_fused_matches_port_staged(marked, clip_window, clip):
     wav = clip_window if clip else marked
     mode = tsf.SyncMode.CLIP if clip else tsf.SyncMode.BLOCK
-    fused = tsf.search([Key()], wav, mode, "cpu")
+    fused = tsf.search([TKey()], wav, mode, "cpu")
     assert all(s.raw is not None for s in fused[0].sync_scores)
-    _assert_same(fused, tsf.search_staged([Key()], wav, mode, "cpu"))
+    _assert_same(fused, tsf.search_staged([TKey()], wav, mode, "cpu"))
 
 
 def test_fused_search_takes_a_partial_frame_after_a_bucket():
@@ -199,10 +219,10 @@ def test_fused_search_takes_a_partial_frame_after_a_bucket():
     and a partial one: the fused search pads to the next bucket and agrees
     with the staged search."""
     rng = np.random.RandomState(1280)
-    n = 1280 * Params.frame_size + 100
+    n = 1280 * TParams.frame_size + 100
     wav = WavData(((rng.rand(n * 2) * 2 - 1) * 0.5).astype(np.float32), 2,
                   44100, 16)
-    fused = tsf.search([Key()], wav, tsf.SyncMode.BLOCK, "cpu")
+    fused = tsf.search([TKey()], wav, tsf.SyncMode.BLOCK, "cpu")
     assert fused[0].sync_scores
-    _assert_same(fused, tsf.search_staged([Key()], wav, tsf.SyncMode.BLOCK,
+    _assert_same(fused, tsf.search_staged([TKey()], wav, tsf.SyncMode.BLOCK,
                                           "cpu"))

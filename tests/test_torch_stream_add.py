@@ -19,6 +19,9 @@ frames, to keep the CPU run short.
 * port streaming vs port whole-file (the JAX package's own contract,
   tests/test_add_fast_path.py): bit-exact with the limiter off, at most 1
   LSB on fewer than 1e-3 of the samples with it on, Data Blocks equal.
+
+Each package reads its own Params (the same settings go to both) and gets
+its own Key and streams.
 """
 
 import contextlib
@@ -29,31 +32,46 @@ import numpy as np
 import pytest
 import torch
 
-from audiowmark_tpu.crypto.keys import Key
-from audiowmark_tpu.io.streams import (create_input_stream,
-                                       create_output_stream)
-from audiowmark_tpu.io.wavdata import WavData
+from audiowmark_tpu import params as jparams
+from audiowmark_tpu.crypto.keys import Key as JKey
+from audiowmark_tpu.io import streams as jstreams
 from audiowmark_tpu.models import embedder as jemb
 from audiowmark_tpu.models.common import parse_payload
-from audiowmark_tpu.params import Encoding, Format, Params
+from audiowmark_tpu_torch import params as tparams
+from audiowmark_tpu_torch.crypto.keys import Key as TKey
+from audiowmark_tpu_torch.io import streams as tstreams
+from audiowmark_tpu_torch.io.wavdata import WavData
 from audiowmark_tpu_torch.models import embedder as temb
 
 torch.set_num_threads(2)
 MSG = "f0" * 16
-FRAME = Params.frame_size
+FRAME = tparams.Params.frame_size
+# per package: (its embedder, its params module, its Key, its streams)
+SIDES = ((temb, tparams, TKey, tstreams), (jemb, jparams, JKey, jstreams))
 
 
-def _geometry():
-    Params.sync_frames_per_bit = 30
-    Params.frames_per_bit = 1
+def _set(**values):
+    """The same settings on the JAX package's Params and the port's."""
+    for _, params, _, _ in SIDES:
+        for name, value in values.items():
+            setattr(params.Params, name, value)
+
+
+def _reset():
+    for _, params, _, _ in SIDES:
+        params.Params.reset()
+
+
+def _side(module):
+    return next(side for side in SIDES if side[0] is module)
 
 
 @pytest.fixture(autouse=True)
 def _params():
-    Params.reset()
-    _geometry()
+    _reset()
+    _set(sync_frames_per_bit=30, frames_per_bit=1)
     yield
-    Params.reset()
+    _reset()
 
 
 def _noise(path, seconds, rate, seed=11):
@@ -70,7 +88,8 @@ def _add(module, src, dst, stream=True, **kw):
     buf = io.StringIO()
     try:
         with contextlib.redirect_stderr(buf):
-            assert module.add_watermark(Key(), src, dst, MSG, **kw) == 0
+            assert module.add_watermark(_side(module)[2](), src, dst, MSG,
+                                        **kw) == 0
     finally:
         module._FAST_PATH_MAX_FRAMES = saved
     return buf.getvalue()
@@ -93,8 +112,7 @@ def _lsb_apart(a_path, b_path):
 
 
 def _assert_close_to_jax(tmp_path, src, **params):
-    for name, value in params.items():
-        setattr(Params, name, value)
+    _set(**params)
     port = _add(temb, src, str(tmp_path / "port.wav"), device="cpu")
     jax = _add(jemb, src, str(tmp_path / "jax.wav"))
     lsb, n = _lsb_apart(str(tmp_path / "port.wav"), str(tmp_path / "jax.wav"))
@@ -116,8 +134,9 @@ def _raw_noise(path, seconds, rate):
     rng = np.random.RandomState(12)
     (rng.randint(-30000, 30000, int(seconds * rate) * 2).astype("<i2")
      .tofile(path))
-    Params.input_format = Format.RAW
-    Params.raw_input_format.set_sample_rate(rate)
+    for _, params, _, _ in SIDES:
+        params.Params.input_format = params.Format.RAW
+        params.Params.raw_input_format.set_sample_rate(rate)
 
 
 def test_stream_add_48k_matches_jax(tmp_path):
@@ -147,14 +166,15 @@ def test_stream_add_unknown_length_matches_jax(tmp_path):
 
 
 def _add_stream(module, src, dst, zero_frames, **kw):
-    in_stream = create_input_stream(src)
-    out_stream = create_output_stream(dst, 2, 44100, 16, Encoding.SIGNED,
-                                      in_stream.n_frames())
+    _, params, key, streams = _side(module)
+    in_stream = streams.create_input_stream(src)
+    out_stream = streams.create_output_stream(
+        dst, 2, 44100, 16, params.Encoding.SIGNED, in_stream.n_frames())
     buf = io.StringIO()
     try:
         with contextlib.redirect_stderr(buf):
             assert module.add_stream_watermark(
-                Key(), in_stream, out_stream, MSG, zero_frames, **kw) == 0
+                key(), in_stream, out_stream, MSG, zero_frames, **kw) == 0
     finally:
         in_stream.close()
     return buf.getvalue()
@@ -182,8 +202,8 @@ def test_embedder_skip_matches_jax():
     rng = np.random.RandomState(5)
     audio = (rng.rand(40 * FRAME * 2).astype(np.float32) * 2 - 1)
     outs = []
-    for emb in (temb.StreamingEmbedder(Key(), 2, 44100, bitvec, "cpu"),
-                jemb.StreamingEmbedder(Key(), 2, 44100, bitvec)):
+    for emb in (temb.StreamingEmbedder(TKey(), 2, 44100, bitvec, "cpu"),
+                jemb.StreamingEmbedder(JKey(), 2, 44100, bitvec)):
         out = emb.skip(16 * FRAME)
         deltas = [emb.run(audio)]
         deltas.append(emb.run(np.zeros(FRAME * 2, np.float32)))
@@ -196,7 +216,7 @@ def test_embedder_skip_matches_jax():
 
 @pytest.mark.parametrize("no_limiter", [True, False])
 def test_stream_add_matches_port_fast_path(tmp_path, no_limiter):
-    Params.test_no_limiter = no_limiter
+    tparams.Params.test_no_limiter = no_limiter
     src = str(tmp_path / "n.wav")
     _noise(src, 30, 44100, seed=13)
     fast = _add(temb, src, str(tmp_path / "fast.wav"), stream=False,

@@ -2,7 +2,8 @@
 package on the same numpy inputs.
 
 The plain PyTorch trellis must equal the Pallas kernel (interpret mode) and
-the lax.scan form exactly: decisions, final metrics and traced-back bits.
+the lax.scan form exactly: decisions (bit-packed by the port, unpacked to
+the JAX package's int8 form here), final metrics and traced-back bits.
 The port's decoders must give the JAX decoders' bits exactly and their
 errors to rtol 1e-6 (one f32 division of the same metric; the branch
 metrics come from another matmul, whose sums may round differently).
@@ -19,16 +20,26 @@ from audiowmark_tpu.codec import convcode as jconv
 from audiowmark_tpu.codec import shortcode as jshort
 from audiowmark_tpu.ops.viterbi_pallas import (viterbi_acs_pallas,
                                                viterbi_acs_pallas_batch)
-from audiowmark_tpu.params import Params
+from audiowmark_tpu.params import Params as JParams
 from audiowmark_tpu_torch import device as tdevice
 from audiowmark_tpu_torch.codec import convcode as tconv
 from audiowmark_tpu_torch.codec import shortcode as tshort
-from audiowmark_tpu_torch.fixtures import acs_check_metrics
+from audiowmark_tpu_torch.fixtures import acs_check_metrics, acs_equal
 from audiowmark_tpu_torch.models.decoder import normalize_soft_bits
 from audiowmark_tpu_torch.ops import viterbi
+from audiowmark_tpu_torch.params import Params as TParams
 
 torch.set_num_threads(2)
 S = viterbi.STATE_COUNT
+
+
+@pytest.fixture(autouse=True)
+def _reset_params():
+    JParams.reset()
+    TParams.reset()
+    yield
+    JParams.reset()
+    TParams.reset()
 
 
 def _bm(seed, B, steps):
@@ -38,7 +49,8 @@ def _bm(seed, B, steps):
 @pytest.mark.parametrize("B,steps", [(3, 9), (1, 12)])
 def test_plain_acs_matches_pallas(B, steps):
     bm = _bm(B + steps, B, steps)
-    dec, metrics, _ = viterbi.viterbi_acs(torch.from_numpy(bm))
+    dec_bits, metrics, _ = viterbi.viterbi_acs(torch.from_numpy(bm))
+    dec = viterbi.unpack_decisions(dec_bits)
     if B == 1:
         jd, jm = viterbi_acs_pallas(jnp.asarray(bm[0]), interpret=True)
         jd, jm = np.asarray(jd)[None], np.asarray(jm)[None]
@@ -53,13 +65,33 @@ def test_plain_acs_matches_pallas_on_ties_and_nan():
     clean codewords (integer metrics, exact ties), an all-NaN row and a
     random row.  Decisions exact, metrics exact with NaN equal to NaN."""
     bm = acs_check_metrics(2, 5, 17, "cpu")
-    dec, metrics, _ = viterbi.viterbi_acs(bm)
+    dec = viterbi.unpack_decisions(viterbi.viterbi_acs_plain(bm)[0])
+    metrics = viterbi.viterbi_acs(bm)[1]
     jd, jm = viterbi_acs_pallas_batch(jnp.asarray(bm.numpy()),
                                       interpret=True)
     assert np.array_equal(dec.numpy(), np.asarray(jd))
     assert np.array_equal(metrics.numpy(), np.asarray(jm).reshape(5, S),
                           equal_nan=True)
     assert np.isnan(metrics[3].numpy()).all()
+
+
+def test_acs_check_helpers():
+    """acs_check_metrics falls back to seeded random rows where no codeword
+    or NaN row fits, and acs_equal takes NaN = NaN but no other change."""
+    small = acs_check_metrics(4, 3, 17, "cpu")
+    assert torch.equal(small, torch.from_numpy(_bm(4, 3, 17)))
+    short = acs_check_metrics(4, 5, 9, "cpu")
+    assert short.shape == (5, 9, S) and not torch.isnan(short).any()
+    out = viterbi.viterbi_acs_plain(acs_check_metrics(2, 5, 17, "cpu"))
+    assert torch.isnan(out[1]).any()
+    assert acs_equal(out, tuple(t.clone() for t in out))
+    for i in range(3):
+        changed = [t.clone() for t in out]
+        changed[i].view(-1)[-1] += 1
+        assert not acs_equal(out, changed)
+    changed = [t.clone() for t in out]
+    changed[1][3, 0] = 0.0              # a NaN metric made finite
+    assert not acs_equal(out, changed)
 
 
 def test_plain_acs_matches_scan_and_traceback():
@@ -156,8 +188,9 @@ def test_conv_decode_soft_mixed_matches_jax():
 
 @pytest.mark.parametrize("k", [12, 16, 20])
 def test_short_decode_matches_jax(k):
-    Params.payload_short = True
-    Params.payload_size = k
+    for params in (JParams, TParams):
+        params.payload_short = True
+        params.payload_size = k
     assert jshort.short_code_init(k) > 0
     rng = np.random.RandomState(k)
     bits = rng.randint(0, 2, k)
@@ -172,6 +205,35 @@ def test_short_decode_matches_jax(k):
                                       device="cpu")
     assert np.array_equal(tb, jb) and np.array_equal(tb, bits)
     np.testing.assert_allclose(te, je, rtol=1e-6)
+
+
+def test_decision_packing_round_trips():
+    """pack -> unpack gives each pair's decision on both successors, and
+    bit k of word w is pair 32w + k, bit 31 included (negative words)."""
+    rng = np.random.RandomState(9)
+    d = torch.from_numpy(rng.rand(2, 3, S // 2) < 0.5)
+    words = viterbi.pack_decisions(d)
+    assert words.shape == (2, 3, viterbi.WORDS) and words.dtype == torch.int32
+    assert (words < 0).any()
+    unpacked = viterbi.unpack_decisions(words)
+    assert unpacked.dtype == torch.int8 and unpacked.shape == (2, 3, S)
+    assert torch.equal(unpacked[..., 0::2].bool(), d)
+    assert torch.equal(unpacked[..., 1::2].bool(), d)
+    assert torch.equal(viterbi.pack_decisions(unpacked[..., 0::2].bool()),
+                       words)
+    one = torch.zeros(S // 2, dtype=torch.bool)
+    one[32 * 7 + 31] = True
+    word = viterbi.pack_decisions(one)
+    assert int(word[7]) == -2**31 and int(torch.count_nonzero(word)) == 1
+
+
+def test_cluster_size_fills_the_card():
+    """The larger of 8 and 4 CTAs per row that keeps B x C within the
+    card's 132 SMs, else 2 (waves)."""
+    sizes = {b: viterbi.cluster_size(b, 132) for b in (1, 8, 9, 16, 17, 33,
+                                                       34, 52, 140)}
+    assert sizes == {1: 8, 8: 8, 9: 8, 16: 8, 17: 4, 33: 4, 34: 2, 52: 2,
+                     140: 2}
 
 
 def test_wrapper_checks_its_input():
