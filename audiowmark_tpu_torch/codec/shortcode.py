@@ -68,6 +68,11 @@ def _matrix(k: int) -> np.ndarray:
     return mat
 
 
+def short_code_supported(k: int) -> bool:
+    """Whether there is a generator matrix for payload size k."""
+    return k in _MATRICES
+
+
 def short_code_output_size(k: int) -> int:
     return _matrix(k).shape[1]
 

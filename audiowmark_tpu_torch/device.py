@@ -22,5 +22,6 @@ def resolve(device: DeviceLike = None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "audiowmark_tpu_torch needs a CUDA device; pass device='cpu' "
-            "to run the plain PyTorch path on the CPU")
+            "(the command line: set AUDIOWMARK_TORCH_DEVICE=cpu) to run "
+            "the plain PyTorch path on the CPU")
     return dev

@@ -4,8 +4,9 @@ and reporting.
 Port of audiowmark_tpu/models/getter.py (reference: src/wmget.cc:886-1013):
 input at any sample rate and of any length, in 30-minute chunks resampled
 to 44.1 kHz, loaded, searched and decoded one after another (no prefetch
-thread, no multi-chunk group search).  Speed detection raises: it is not
-ported yet.
+thread, no multi-chunk group search).  With --detect-speed,
+--detect-speed-patient or --try-speed each chunk is also resampled to the
+detected or given speed and decoded there, ahead of its speed-1 decode.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import List
 from ..crypto.keys import Key
 from ..io.streams import StreamError
 from ..io.wavdata import WavData
+from ..ops.resample import resample_ratio
 from ..params import Params
 from ..utils.log import error
 
@@ -23,12 +25,36 @@ from .chunkloader import WavChunkLoader
 from .common import parse_payload
 from .decoder import BlockDecoder, ClipDecoder, _DecodeJobs
 from .resultset import ResultSet
+from .speed import detect_speed
 
 
 def _decode(result_set: ResultSet, key_list: List[Key], wav_data: WavData,
-            first_chunk: bool, device):
+            orig_bits, first_chunk: bool, device):
     """Block decode of the chunk (and clip decode of the first), with ONE
-    batched trellis launch for all of their decodes."""
+    batched trellis launch for all of their decodes; before it, with a
+    speed option, the same for each key at its detected or given speed, on
+    the chunk resampled to that speed, with a launch of its own."""
+    if Params.detect_speed or Params.detect_speed_patient \
+            or Params.try_speed > 0:
+        if Params.detect_speed or Params.detect_speed_patient:
+            speed_results = detect_speed(key_list, wav_data,
+                                         print_results=bool(orig_bits),
+                                         device=device)
+        else:
+            speed_results = [(key, Params.try_speed) for key in key_list]
+
+        for key, speed in speed_results:
+            wav_speed = resample_ratio(wav_data, speed,
+                                       int(Params.mark_sample_rate * speed),
+                                       device)
+            jobs = _DecodeJobs(device)
+            BlockDecoder(speed, device).run([key], wav_speed, result_set,
+                                            jobs)
+            if first_chunk:
+                ClipDecoder(speed, device).run([key], wav_speed, result_set,
+                                               jobs)
+            jobs.flush()
+
     jobs = _DecodeJobs(device)
     block_decoder = BlockDecoder(1, device)
     block_decoder.run(key_list, wav_data, result_set, jobs)
@@ -63,11 +89,6 @@ def get_watermark(key_list: List[Key], infile: str, orig_pattern: str,
     message) on `infile`, on `device` (default: the CUDA card); prints the
     reference's report and returns its exit code."""
     dev = resolve(device)
-    if Params.detect_speed or Params.detect_speed_patient \
-            or Params.try_speed > 0:
-        raise NotImplementedError(
-            "audiowmark_tpu_torch: speed detection is not ported yet "
-            "(ROADMAP Queue 1: speed detection)")
     result_set = ResultSet()
 
     orig_bitvec = []
@@ -91,7 +112,8 @@ def get_watermark(key_list: List[Key], infile: str, orig_pattern: str,
             wav_data = loader.wav_data()
             chunk_result_set = ResultSet()
             _decode(chunk_result_set, key_list,
-                    wav_data.with_samples(wav_data.samples), first_chunk, dev)
+                    wav_data.with_samples(wav_data.samples), orig_bitvec,
+                    first_chunk, dev)
             chunk_result_set.apply_time_offset(loader.time_offset())
             result_set.merge(chunk_result_set)
             first_chunk = False

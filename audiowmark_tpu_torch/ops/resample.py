@@ -81,24 +81,23 @@ def _gather_dot(xpad: torch.Tensor, base: torch.Tensor,
     return y
 
 
-def resample_buffer(samples: np.ndarray, n_channels: int, ratio: float,
-                    device: DeviceLike = None) -> np.ndarray:
-    """Resample interleaved samples by `ratio` on `device`; returns
-    interleaved output of round(in_frames*ratio) frames."""
-    dev = resolve(device)
-    x = np.asarray(samples, dtype=np.float32).reshape(-1, n_channels)
-    in_frames = x.shape[0]
+def resample_frames(x: torch.Tensor, ratio: float) -> torch.Tensor:
+    """Resample (frames, C) float32 frames by `ratio` on x's device;
+    returns (round(frames*ratio), C) there."""
+    dev = x.device
+    in_frames, n_channels = x.shape
     out_frames = int(round(in_frames * ratio))
     if ratio == 1.0:
-        out = np.zeros((out_frames, n_channels), dtype=np.float32)
+        out = torch.zeros((out_frames, n_channels), dtype=torch.float32,
+                          device=dev)
         n = min(out_frames, in_frames)
         out[:n] = x[:n]
-        return out.reshape(-1)
+        return out
 
     _, _, half_taps, n_taps = _filter_params(ratio)
     xpad = torch.zeros((in_frames + n_taps, n_channels), dtype=torch.float32,
                        device=dev)
-    xpad[half_taps - 1: half_taps - 1 + in_frames] = torch.from_numpy(x).to(dev)
+    xpad[half_taps - 1: half_taps - 1 + in_frames] = x
     # output j centre p_j = j/ratio; the base index into xpad of tap 0 is
     # floor(p_j) - (half_taps-1) + (half_taps-1) [pad offset] = floor(p_j)
     j = np.arange(out_frames, dtype=np.float64)
@@ -113,6 +112,15 @@ def resample_buffer(samples: np.ndarray, n_channels: int, ratio: float,
         end = min(start + _TILE, out_frames)
         out[start:end] = _gather_dot(xpad, base[start:end],
                                      _coeffs(frac[start:end], ratio))
+    return out
+
+
+def resample_buffer(samples: np.ndarray, n_channels: int, ratio: float,
+                    device: DeviceLike = None) -> np.ndarray:
+    """Resample interleaved samples by `ratio` on `device`; returns
+    interleaved output of round(in_frames*ratio) frames."""
+    x = np.asarray(samples, dtype=np.float32).reshape(-1, n_channels)
+    out = resample_frames(torch.from_numpy(x).to(resolve(device)), ratio)
     return out.cpu().numpy().reshape(-1)
 
 

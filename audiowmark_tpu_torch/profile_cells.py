@@ -4,8 +4,10 @@
 
 Makes the fixtures of chip_smoke.py in a temporary directory (200 s of
 the CLI's test-gen-noise at 44.1 and at 32 kHz, 32 min of seeded noise at
-44.1 kHz) and drives six calls through the user's entry points: add, then
-get as `cmp`, of each.  Every call runs four times:
+44.1 kHz; 30 s of test-gen-noise, marked and played at speed 0.9764) and
+drives seven calls through the user's entry points: add, then get as `cmp`,
+of each of the first three, and `cmp --detect-speed` of the last.  Every
+call runs four times:
 
   1. first: the first call of its kind in the process (cuFFT plans,
      allocator growth), wall seconds;
@@ -111,6 +113,9 @@ def main(argv=None) -> int:
 
     from . import add_watermark, get_watermark
     from .fixtures import gen_noise, long_noise
+    from .io.wavdata import WavData
+    from .ops.resample import resample_ratio
+    from .params import Params
 
     key = Key()
     report = ["card: %s" % torch.cuda.get_device_name(0)]
@@ -123,10 +128,12 @@ def main(argv=None) -> int:
             raise SystemExit("profile_cells: add of %s failed:\n%s"
                              % (src, info.getvalue()))
 
-    def cmp(path, expect):
+    def cmp(path, expect, detect_speed=False):
         out = io.StringIO()
+        Params.detect_speed = detect_speed
         with contextlib.redirect_stdout(out):
             rc = get_watermark([key], path, MSG)
+        Params.detect_speed = False
         if rc != 0 or (expect is not None and ("\nmatch_count %d " % expect)
                        not in "\n" + out.getvalue()):
             raise SystemExit("profile_cells: cmp of %s: rc %d, expected "
@@ -140,6 +147,10 @@ def main(argv=None) -> int:
         gen_noise(key, path("n44.wav"), 200, 44100)
         gen_noise(key, path("n32.wav"), 200, 32000)
         long_noise(1, path("nlong.wav"), LONG_SECONDS, 44100)
+        gen_noise(key, path("n30.wav"), 30, 44100)
+        add(path("n30.wav"), path("w30.wav"))
+        resample_ratio(WavData.load(path("w30.wav")), 1 / 0.9764,
+                       44100).save(path("w30_slow.wav"))
         calls = [
             ("add_44k_200s", lambda: add(path("n44.wav"), path("w44.wav"))),
             ("get_44k_200s", lambda: cmp(path("w44.wav"), 5)),
@@ -148,6 +159,8 @@ def main(argv=None) -> int:
             ("add_44k_32min",
              lambda: add(path("nlong.wav"), path("wlong.wav"))),
             ("get_44k_32min", lambda: cmp(path("wlong.wav"), None)),
+            ("get_44k_30s_detect_speed",
+             lambda: cmp(path("w30_slow.wav"), 1, detect_speed=True)),
         ]
         for name, fn in calls:
             profile_call(name, fn, report)

@@ -46,14 +46,31 @@ get_watermark as `cmp` — on deterministic 16-bit stereo noise at 44.1 kHz
      threshold, which decode to noise) are below it, at most
      Params.get_n_best per chunk; on the first 30-min chunk the tiled
      search equals the staged one; K1 equals its plain version at the
-     largest batch that get gave it.
+     largest batch that get gave it;
+ 14. speed: the 30 s marked file played at speeds 0.9764, 1.0 and 1.01
+     (the port's resample_ratio by 1/speed); cmp --detect-speed on all
+     three and --detect-speed-patient on 0.9764: exit 0, the detect_speed
+     line within 0.05 % of the true speed with quality > 0.4 and within
+     5e-6 and 1e-3 of what the JAX package prints for the same fixtures on
+     the CPU (JAX_DETECT below), -SPEED patterns with the message at
+     0.9764 and 1.01, no speed result at 1.0; cmp --try-speed 1.01 ->
+     `speed 1.010000`; speed_scan vs the staged pair prepare_mag_matrix +
+     compare_speed_batch on the card (abs 1e-4); K1 equals its plain
+     version at the largest batch these gets gave it; detect_speed timed
+     alone, synchronised, normal and patient, first call and warm, and the
+     resampler's share of a third, instrumented call;
+ 15. cli: `python3 -m audiowmark_tpu_torch` as a subprocess with no device
+     setting (so on the card): test-gen-noise (bytes equal to the 200 s
+     fixture) -> add -> cmp --expect-matches 5 -> exit 0, --expect-matches
+     4 -> exit 1, get --json -> the message in the JSON matches, a missing
+     file -> exit 1 with `audiowmark: error loading`.
 
-Every phase 9-13 prints one line.  Each path (the main path of phases
+Every phase 9-15 prints one line.  Each path (the main path of phases
 5-7; the 32 kHz add and get, the 48 kHz get, the streaming add and its
-get, the --test-no-sync get, the 32-min add and get) has K1's launch
-count reset to 0 just before it and read just after: each must be above
-0.  The kernels line gives their sum as `launches` and each of them in
-`launches_by_path`.
+get, the --test-no-sync get, the 32-min add and get, the speed gets) has
+K1's launch count reset to 0 just before it and read just after: each
+must be above 0.  The kernels line gives their sum as `launches` and each
+of them in `launches_by_path`.
 
 Any failed check raises: the script exits non-zero and prints no result.
 Without a CUDA device it exits 1 before any work.  On success the line
@@ -78,6 +95,20 @@ MSG = "0123456789abcdef0011223344556677"
 SNR_FLOOR_DB = 32.4        # tests/block-decoder-test.sh:18 of the reference
 LONG_MINUTES = 32          # the JAX package's chunked get (bench.py:367)
 K1_BATCHES, K1_STEPS = (1, 16, 52), 143
+# What the JAX package (jax 0.9.0 on the CPU) prints for phase 14's
+# fixtures made by its own command line, {(speed, patient): (detected
+# speed, quality)} of its "detect_speed <speed> <quality> <delta %>" line:
+#   export AUDIOWMARK_JAX_PLATFORM=cpu M=0123456789abcdef0011223344556677
+#   ./audiowmark test-gen-noise n30.wav 30 44100
+#   ./audiowmark add n30.wav wm30.wav $M
+#   ./audiowmark test-change-speed wm30.wav s.wav <speed>
+#   ./audiowmark cmp s.wav $M --detect-speed[-patient] --test-speed <speed>
+# A 30 s file is shorter than every scan's clip, so each scan reads all of
+# it whatever clip the hash of the samples picks.
+JAX_DETECT = {("0.9764", False): (0.976420, 1.267775),
+              ("1.0", False): (1.000025, 1.408247),
+              ("1.01", False): (1.010022, 1.280683),
+              ("0.9764", True): (0.976421, 1.274315)}
 
 
 def phase(name, **fields):
@@ -427,6 +458,157 @@ def phase_long(port, key, d, smi):
     return launches, k1
 
 
+def phase_speed(port, key, d, smi):
+    """14. replay-speed detection on the 30 s marked file at three speeds;
+    returns K1's launches over its gets and K1's check at their largest
+    batch."""
+    from audiowmark_tpu_torch.io.wavdata import WavData
+    from audiowmark_tpu_torch.models import speed as speed_model
+    from audiowmark_tpu_torch.ops import speed as speed_ops
+    from audiowmark_tpu_torch.ops.resample import resample_ratio
+    from audiowmark_tpu_torch.tables import get_key_tables
+    marked = WavData.load(os.path.join(d, "wm30.wav"))
+    files = {}
+    for speed in ("0.9764", "1.0", "1.01"):
+        files[speed] = os.path.join(d, "speed_%s.wav" % speed)
+        resample_ratio(marked, 1 / float(speed), 44100).save(files[speed])
+
+    # detect_speed alone, synchronised: the first call of its kind in the
+    # process, a warm one, and one with the resampler timed apart
+    set_params()
+    slow = WavData.load(files["0.9764"])
+    times = {}
+    for name, patient in (("normal", False), ("patient", True)):
+        set_params(detect_speed_patient=patient)
+        for run in ("first", "warm"):
+            found, times["%s_%s_s" % (name, run)] = timed(
+                lambda: speed_model.detect_speed([key], slow, False))
+            check(len(found) == 1 and abs(found[0][1] / 0.9764 - 1) < 5e-4,
+                  "detect_speed (%s) found %s" % (name, found))
+        in_resampler, resample = [0.0], speed_ops.resample_frames
+
+        def timed_resample(x, ratio):
+            out, s = timed(lambda: resample(x, ratio))
+            in_resampler[0] += s
+            return out
+
+        torch.cuda.synchronize()
+        speed_ops.resample_frames = timed_resample
+        try:
+            _, whole = timed(
+                lambda: speed_model.detect_speed([key], slow, False))
+        finally:
+            speed_ops.resample_frames = resample
+        times["%s_resampler_share" % name] = in_resampler[0] / whole
+    set_params()
+
+    # the whole scan vs the staged pair, on the card
+    bits = speed_ops.build_speed_sync_bits(get_key_tables(key))
+    clip = slow.samples[:2 * 12 * 44100]
+    centers = [0.9764 * 1.0007 ** c for c in (-11, 0, 11)]
+    rels = [1.0007 ** p for p in range(-2, 3)]
+    scan = speed_ops.speed_scan(clip, 2, centers, 10.0, rels, bits)
+    staged = [speed_ops.compare_speed_batch(
+        speed_ops.prepare_mag_matrix(clip, 2, c, 10.0, bits), bits, rels, c)
+        for c in centers]
+    scan_err = max(abs(q - sq) for row, srow in zip(scan, staged)
+                   for (q, _), (sq, _) in zip(row, srow))
+    check(scan_err <= 1e-4 and max(q for row in scan for q, _ in row) > 0
+          and [[sp for _, sp in row] for row in scan]
+          == [[sp for _, sp in row] for row in staged],
+          "speed_scan is %g from the staged pair" % scan_err)
+
+    def gets():
+        fields = {}
+        for speed, patient in JAX_DETECT:
+            option = "detect_speed_patient" if patient else "detect_speed"
+            _, get_s, text = cmp(port, key, files[speed], 1,
+                                 test_speed=float(speed), **{option: True})
+            lines = text.splitlines()
+            found = [line.split() for line in lines
+                     if line.startswith("detect_speed ")]
+            check(len(found) == 1, "no detect_speed line in:\n" + text)
+            got, quality = float(found[0][1]), float(found[0][2])
+            want, want_quality = JAX_DETECT[(speed, patient)]
+            check(abs(got / float(speed) - 1) < 5e-4 and quality > 0.4,
+                  "detect_speed %s at speed %s" % (found[0], speed))
+            check(abs(got - want) <= 5e-6 and abs(quality - want_quality)
+                  <= 1e-3, "detect_speed %s, the JAX package %s"
+                  % (found[0], JAX_DETECT[(speed, patient)]))
+            speed_lines = [line for line in lines
+                           if line.startswith("speed ")]
+            with_speed = [line.split() for line in lines
+                          if line.startswith("pattern") and "SPEED" in line]
+            if speed == "1.0":
+                check(not speed_lines and not with_speed,
+                      "a speed result at speed 1.0:\n" + text)
+            else:
+                check(len(speed_lines) == 1 and with_speed
+                      and any(f[2] == MSG for f in with_speed),
+                      "no speed result at speed %s:\n%s" % (speed, text))
+            name = option + "_" + speed
+            fields[name] = dict(speed=got, quality=quality, get_s=get_s,
+                                jax_speed=want, jax_quality=want_quality)
+        _, get_s, text = cmp(port, key, files["1.01"], 1, try_speed=1.01)
+        check("\nspeed 1.010000\n" in text and "detect_speed" not in text
+              and "-SPEED" in text, "--try-speed 1.01:\n" + text)
+        fields["try_speed_1.01"] = dict(get_s=get_s)
+        return fields
+
+    (fields, shapes), launches = launches_of(
+        "the speed gets", lambda: batches_of(gets))
+    # every get launches K1 twice: the decodes at its speed, then at speed 1
+    # (once where no speed was found)
+    check(launches == len(shapes) == 2 * len(JAX_DETECT) + 1,
+          "the speed gets launched K1 %d times" % launches)
+    batch, steps = max(shapes)
+    k1 = k1_check(3, batch, steps)
+    phase("speed", scan_vs_staged=scan_err, k1_launches=launches,
+          k1_batches=sorted(set(shapes)), k1_check=k1, card=smi,
+          **times, **fields)
+    return launches, k1
+
+
+def phase_cli(d, smi):
+    """15. the port's command line in processes of its own, on the card."""
+    env = {k: v for k, v in os.environ.items()
+           if k != "AUDIOWMARK_TORCH_DEVICE"}
+    noise, wm = os.path.join(d, "cli_n.wav"), os.path.join(d, "cli_wm.wav")
+    out_json = os.path.join(d, "cli.json")
+    seconds = {}
+
+    def run(name, args, rc):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "audiowmark_tpu_torch"] + args, cwd=REPO,
+            env=env, capture_output=True, text=True, timeout=600)
+        seconds[name + "_s"] = time.perf_counter() - t0
+        check(proc.returncode == rc, "%s: exit %d, not %d:\n%s\n%s" % (
+            " ".join(args), proc.returncode, rc, proc.stdout, proc.stderr))
+        return proc
+
+    run("gen_noise", ["test-gen-noise", noise, "200", "44100"], 0)
+    with open(noise, "rb") as a, open(os.path.join(d, "n200.wav"), "rb") as b:
+        check(a.read() == b.read(), "test-gen-noise differs from gen_noise")
+    proc = run("add", ["add", noise, wm, MSG], 0)
+    check("Data Blocks:" in proc.stderr, "add printed:\n" + proc.stderr)
+    proc = run("cmp", ["cmp", wm, MSG, "--expect-matches", "5"], 0)
+    check("\nmatch_count 5 " in proc.stdout
+          and "expect_matches 5" in proc.stdout, "cmp printed:\n" + proc.stdout)
+    run("cmp_4", ["cmp", wm, MSG, "--expect-matches", "4"], 1)
+    run("get_json", ["get", wm, "--json", out_json], 0)
+    with open(out_json) as f:
+        matches = json.load(f)["matches"]
+    check(sum(m["bits"] == MSG for m in matches) == 5,
+          "get --json gave %s" % matches)
+    proc = run("missing", ["get", os.path.join(d, "missing.wav")], 1)
+    check(proc.stderr.startswith("audiowmark: error loading ")
+          and "Traceback" not in proc.stderr, "get of a missing file:\n"
+          + proc.stderr)
+    phase("cli", match_count=5, json_matches=len(matches), card=smi,
+          **seconds)
+
+
 def main_path(port, key, d, n200, wm200, smi):
     """5.-7. 200 s add and cmp (cold, warm), the SNR, 60 s and 30 s."""
     from audiowmark_tpu_torch.io.wavdata import WavData
@@ -548,6 +730,11 @@ def main() -> int:
         phase_staged(key, d, smi)
         paths["long_32min"], long_check = phase_long(port, key, d, smi)
         checks.append(long_check)
+
+        # ---- 14.-15. replay-speed detection, the command line ----
+        paths["speed"], speed_check = phase_speed(port, key, d, smi)
+        checks.append(speed_check)
+        phase_cli(d, smi)
 
     phase("total", seconds=time.perf_counter() - t_script, card=smi)
 

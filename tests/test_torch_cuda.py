@@ -1,6 +1,7 @@
 """The port on a CUDA card: kernel K1 vs its plain version, and the slice,
-the streaming resampler, the 48 kHz streaming add and the staged search on
-the card vs the port on the CPU.
+the streaming resampler, the 48 kHz streaming add, the staged search and
+a speed scan on the card vs the port on the CPU; the command line on the
+card.
 
 Every test here needs the card and skips without one.  This file imports
 no jax and nothing of the JAX package, so it runs where jax is absent,
@@ -224,3 +225,50 @@ def test_streaming_add_and_staged_search_on_card_match_cpu(tmp_path):
             [s.quality for s in r[0].sync_scores],
             [s.quality for s in results[1][0].sync_scores],
             rtol=2e-4, atol=2e-5)
+
+
+def test_speed_scan_on_card_matches_cpu():
+    """One short scan (6 s, 3 centres, 5 rels, reduced geometry) of a seeded
+    stereo clip on the card vs the port on the CPU: speeds equal, qualities
+    within abs 1e-4 (the resampler's coefficients and the rfft round
+    differently on the two devices, and the dB of a weak bin amplifies
+    that)."""
+    from audiowmark_tpu_torch.ops import speed as speed_ops
+    from audiowmark_tpu_torch.tables import get_key_tables
+    Params.sync_frames_per_bit = 30
+    Params.frames_per_bit = 1
+    bits = speed_ops.build_speed_sync_bits(get_key_tables(Key()))
+    rng = np.random.RandomState(14)
+    clip = ((rng.rand(8 * 44100 * 2) * 2 - 1) * 0.5).astype(np.float32)
+    centers = [0.95, 1.0, 1.05]
+    rels = [1.0007 ** p for p in range(-2, 3)]
+    card, cpu = (speed_ops.speed_scan(clip, 2, centers, 6.0, rels, bits, dev)
+                 for dev in ("cuda", "cpu"))
+    assert [[sp for _, sp in row] for row in card] \
+        == [[sp for _, sp in row] for row in cpu]
+    q_card = np.array([[q for q, _ in row] for row in card])
+    q_cpu = np.array([[q for q, _ in row] for row in cpu])
+    assert q_cpu.max() > 0
+    print("speed_scan card vs CPU: max |dq| %g" % np.abs(q_card - q_cpu).max())
+    np.testing.assert_allclose(q_card, q_cpu, rtol=0, atol=1e-4)
+
+
+def test_command_line_on_card(tmp_path, capsys):
+    """`main([...])` with no device setting runs on the card: a 30 s file is
+    marked, played at speed 1.01 and compared with --try-speed 1.01, which
+    decodes it at that speed and at speed 1, each with a K1 launch of its
+    own, and finds the message at the given speed."""
+    from audiowmark_tpu_torch.cli import main
+    noise, wm, fast = (str(tmp_path / name)
+                       for name in ("n.wav", "wm.wav", "fast.wav"))
+    assert main(["test-gen-noise", noise, "30", "44100"]) == 0
+    assert main(["add", noise, wm, MSG]) == 0
+    assert main(["test-change-speed", wm, fast, "1.01"]) == 0
+    capsys.readouterr()
+    before = viterbi.LAUNCHES
+    assert main(["cmp", fast, MSG, "--try-speed", "1.01"]) == 0
+    assert viterbi.LAUNCHES == before + 2
+    out = capsys.readouterr().out
+    assert "\nspeed 1.010000\n" in "\n" + out
+    assert any(line.startswith("pattern") and "-SPEED" in line
+               and line.split()[2] == MSG for line in out.splitlines())

@@ -177,13 +177,17 @@ def _assert_same_report(j_out, t_out):
 
 
 def test_unported_paths_raise(files):
-    """Speed detection is the one path of add and get still unported."""
-    for name, value in (("detect_speed", True), ("detect_speed_patient", True),
-                        ("try_speed", 1.01)):
-        TParams.reset()
-        setattr(TParams, name, value)
-        with pytest.raises(NotImplementedError, match="speed detection"):
-            t_get([TKey()], files["port"], MSG, device="cpu")
+    """HLS is the one part of the command line still unported: hls-add and
+    hls-prepare raise, naming their ROADMAP item.  The speed options, which
+    raised until they were ported, run: --try-speed 1.0 decodes the file
+    once more at the speed it has and matches."""
+    from audiowmark_tpu_torch.cli import main
+    for argv in (["hls-add", "in.ts", "out.ts", MSG],
+                 ["hls-prepare", "in", "out", "list.m3u8", "master.wav"]):
+        with pytest.raises(NotImplementedError, match="HLS and video"):
+            main(argv)
+    TParams.try_speed = 1.0
+    assert t_get([TKey()], files["port"], MSG, device="cpu") == 0
 
 
 def test_48k_add_get_matches_jax(tmp_path, capsys):
