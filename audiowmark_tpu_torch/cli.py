@@ -7,11 +7,13 @@ Port of audiowmark_tpu/cli.py, which mirrors the reference CLI
 test commands (gentest, cut-start, test-subtract, test-snr, test-clip,
 test-speed, test-gen-noise, test-change-speed, test-resample, test-info),
 the hand-rolled option parser semantics (`--opt v` and `--opt=v`,
-multi-options, positional validation) and exit codes.  hls-add and
-hls-prepare are parsed and raise NotImplementedError: HLS is not ported.
+multi-options, positional validation) and exit codes, hls-add and
+hls-prepare included (hls/hls.py).
 
 The commands that compute run on the CUDA card and fail without one;
 AUDIOWMARK_TORCH_DEVICE=cpu in the environment runs them on the CPU.
+AUDIOWMARK_PROFILE=<dir> writes a torch.profiler trace of the whole
+command into <dir>.
 """
 
 from __future__ import annotations
@@ -552,6 +554,44 @@ def gen_key_cmd(outfile: str, key_name: str) -> int:
 # ---- main ---------------------------------------------------------------------
 
 def main(argv: Optional[List[str]] = None) -> int:
+    # AUDIOWMARK_PROFILE=<dir> records a torch.profiler trace (host and
+    # CUDA activities) of the whole command and writes it into the
+    # directory as a Chrome trace (chrome://tracing, Perfetto)
+    profile_dir = os.environ.get("AUDIOWMARK_PROFILE")
+    if not profile_dir:
+        return _main(argv)
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        os.makedirs(profile_dir, exist_ok=True)
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        trace = profile(activities=activities)
+        trace.__enter__()
+    except Exception as e:
+        error("audiowmark: cannot start profiler trace in '%s': %s\n"
+              % (profile_dir, e))
+        return 1
+    ret = 1
+    try:
+        ret = _main(argv)
+    finally:
+        try:
+            trace.__exit__(None, None, None)
+            path = os.path.join(profile_dir,
+                                "audiowmark-%d.trace.json" % os.getpid())
+            trace.export_chrome_trace(path)
+            if not os.path.isfile(path):     # the exporter only logs that
+                raise OSError("%s was not written" % path)
+        except Exception as e:
+            error("audiowmark: failed to write profiler trace to "
+                  "'%s': %s\n" % (profile_dir, e))
+            ret = 1
+    return ret
+
+
+def _main(argv: Optional[List[str]] = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     ap = ArgParser(argv)
@@ -578,20 +618,18 @@ def main(argv: Optional[List[str]] = None) -> int:
         f = ap.parse_opt_float("--strength")
         if f is not None:
             Params.water_delta = f / 1000
-        parse_key(ap)
-        ap.parse_positional("input_ts", "output_ts", "message_hex")
-        raise NotImplementedError(
-            "audiowmark_tpu_torch: hls-add is not ported yet "
-            "(ROADMAP Queue 1: HLS and video)")
+        key = parse_key(ap)
+        args = ap.parse_positional("input_ts", "output_ts", "message_hex")
+        from .hls.hls import hls_add
+        return hls_add(key, args[0], args[1], args[2], _device())
     elif ap.parse_cmd("hls-prepare"):
         i = ap.parse_opt_int("--bit-rate")
         if i is not None:
             Params.hls_bit_rate = i
-        ap.parse_positional("input_dir", "output_dir", "playlist_name",
-                            "audio_master")
-        raise NotImplementedError(
-            "audiowmark_tpu_torch: hls-prepare is not ported yet "
-            "(ROADMAP Queue 1: HLS and video)")
+        args = ap.parse_positional("input_dir", "output_dir",
+                                   "playlist_name", "audio_master")
+        from .hls.hls import hls_prepare
+        return hls_prepare(args[0], args[1], args[2], args[3])
     elif ap.parse_cmd("add"):
         parse_shared_options(ap)
         parse_add_options(ap)

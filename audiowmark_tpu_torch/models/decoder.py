@@ -7,8 +7,11 @@ search and --test-no-sync, the raws of one batched extraction), keyed
 de-interleaving, A+B joining, the greedy "all" block-chain merge, and the
 clip decoder on zero-padded ~2-block windows at the stream's start and
 end.  Each decoder uploads its audio once, for the search and the
-extraction.  All decodes of one get share ONE batched trellis launch
-(codec/convcode.py -> kernel K1).
+extraction.  The block decoder also takes the results of a group search
+made ahead of it, and the clip decoder searches its two windows in one
+launch, enqueued by `launch` and read back by the `finish` it returns.
+All decodes of one get share ONE batched trellis launch (codec/convcode.py
+-> kernel K1).
 """
 
 from __future__ import annotations
@@ -145,12 +148,21 @@ class BlockDecoder:
         self.key_results: List[syncfinder.KeyResult] = []
 
     def run(self, key_list: List[Key], wav_data, result_set: ResultSet,
-            jobs: _DecodeJobs):
+            jobs: _DecodeJobs,
+            sync_results: Optional[List[syncfinder.KeyResult]] = None,
+            x: Optional[torch.Tensor] = None):
         """Search and queue this chunk's decodes on `jobs`; the caller
-        flushes (one trellis launch covers the block and clip decodes)."""
-        x = syncfinder.upload(wav_data, resolve(self.device))
-        self.key_results = syncfinder.search(key_list, wav_data,
+        flushes (one trellis launch covers the block and clip decodes).
+        sync_results: the chunk's BLOCK KeyResults where a group search
+        already made them (syncfinder.search_block_group); None -> search
+        now.  x: the chunk's samples where they are on the device already
+        (syncfinder.upload's form); None -> uploaded here when needed."""
+        if sync_results is None:
+            if x is None:
+                x = syncfinder.upload(wav_data, resolve(self.device))
+            sync_results = syncfinder.search(key_list, wav_data,
                                              SyncMode.BLOCK, self.device, x)
+        self.key_results = sync_results
         n_channels = wav_data.n_channels
         samples = wav_data.samples
 
@@ -163,6 +175,8 @@ class BlockDecoder:
                 samples, n_channels, key_result.sync_scores, tables,
                 clip=False)
             if raw_map is None:
+                if x is None:
+                    x = syncfinder.upload(wav_data, resolve(self.device))
                 raw_map = _block_raw_batch(
                     x, n_channels,
                     [ss.index for ss in key_result.sync_scores], tables)
@@ -317,10 +331,15 @@ class ClipDecoder:
         self.device = device
 
     def _run_padded(self, key_list, wav_data, result_set, time_offset_sec,
-                    jobs: _DecodeJobs):
-        x = syncfinder.upload(wav_data, resolve(self.device))
-        key_results = syncfinder.search(key_list, wav_data, SyncMode.CLIP,
-                                        self.device, x)
+                    jobs: _DecodeJobs, sync_results=None):
+        """sync_results: the window's CLIP KeyResults where the pair search
+        made them; None -> search now."""
+        x = None
+        if sync_results is None:
+            x = syncfinder.upload(wav_data, resolve(self.device))
+            sync_results = syncfinder.search(key_list, wav_data,
+                                             SyncMode.CLIP, self.device, x)
+        key_results = sync_results
         n_channels = wav_data.n_channels
         samples = wav_data.samples
         for key_result in key_results:
@@ -331,6 +350,8 @@ class ClipDecoder:
                 samples, n_channels, key_result.sync_scores, tables,
                 clip=True)
             if raw_map is None:
+                if x is None:
+                    x = syncfinder.upload(wav_data, resolve(self.device))
                 raw_map = _block_raw_batch(
                     x, n_channels,
                     [i for ss in key_result.sync_scores
@@ -381,16 +402,35 @@ class ClipDecoder:
             np.zeros(pad_end, dtype=np.float32)])
         return wav_data.with_samples(ext), time_offset
 
-    def run(self, key_list, wav_data, result_set: ResultSet,
-            jobs: _DecodeJobs):
-        """Search the start and end windows one by one and queue their
-        decodes on `jobs`; nothing for streams of 3.1 blocks or more."""
+    def launch(self, key_list, wav_data):
+        """Build the padded start and end windows and ENQUEUE their pair
+        search without reading it back; returns finish(result_set, jobs),
+        which reads back, selects and queues the decodes, or None for
+        streams of 3.1 blocks or more (no clip decoding).  The get path
+        calls launch() before the block search's blocking read."""
         tables = get_key_tables(key_list[0])
         wav_frames = wav_data.n_values // (FRAME * wav_data.n_channels)
         if wav_frames >= tables.frames_per_block * 3.1:
-            return
-        for pos in ("start", "end"):
-            window = self._build_window(key_list, wav_data, pos)
-            if window is not None:
-                self._run_padded(key_list, window[0], result_set, window[1],
-                                 jobs)
+            return None
+        windows = [w for w in (self._build_window(key_list, wav_data, pos)
+                               for pos in ("start", "end")) if w is not None]
+        # both windows in ONE batched search; None -> window by window
+        pair_fin = (syncfinder.search_clip_pair_launch(
+                        key_list, [w for w, _ in windows], self.device)
+                    if len(windows) == 2 else None)
+
+        def finish(result_set: ResultSet, jobs: _DecodeJobs):
+            pre = pair_fin() if pair_fin is not None else None
+            for i, (l_wav, time_offset) in enumerate(windows):
+                self._run_padded(key_list, l_wav, result_set, time_offset,
+                                 jobs, pre[i] if pre is not None else None)
+
+        return finish
+
+    def run(self, key_list, wav_data, result_set: ResultSet,
+            jobs: _DecodeJobs):
+        """Search the start and end windows and queue their decodes on
+        `jobs`; nothing for streams of 3.1 blocks or more."""
+        fin = self.launch(key_list, wav_data)
+        if fin is not None:
+            fin(result_set, jobs)

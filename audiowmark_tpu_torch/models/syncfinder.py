@@ -8,14 +8,18 @@ a positive sign).  BLOCK streams longer than MAX_FUSED_FRAMES are searched
 in overlapping tiles; the staged search (one stage at a time, selection on
 the host) takes oversize CLIP streams and candidate slots that stay
 saturated after the x4 escalation; --test-no-sync places the blocks where
-the embedder put them.
+the embedder put them.  `search_block_group` searches several chunks of
+a long file in one batched launch per key, split over the cards, and
+`search_clip_pair` the clip decoder's two windows in one; both give what
+the per-chunk and per-window `search` gives, or None where the caller must
+take that one.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from enum import Enum
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,11 +28,12 @@ from ..crypto.keys import Key
 from ..params import Params
 
 from ..codec.convcode import ConvBlockType
-from ..device import DeviceLike, resolve
+from ..device import DeviceLike, card_count, resolve, spread
 from ..ops import search_fused
 from ..ops import sync as sync_ops
 from ..ops.sync import SHIFTS
 from ..tables import get_key_tables
+from ..utils import prof
 
 
 class SyncMode(Enum):
@@ -173,15 +178,16 @@ def search(key_list: List[Key], wav_data, mode: SyncMode,
     if Params.test_no_sync:
         return _fake_sync(key_list, wav_data, mode)
     dev = resolve(device)
-    if x is None:
-        x = upload(wav_data, dev)
-    results = []
-    for key in key_list:
-        r = _search_fused_one(key, wav_data, mode, x)
-        if r is None:
-            return search_staged(key_list, wav_data, mode, dev, x)
-        results.append(r)
-    return results
+    with prof.phase("get.search_%s" % mode.name.lower()):
+        if x is None:
+            x = upload(wav_data, dev)
+        results = []
+        for key in key_list:
+            r = _search_fused_one(key, wav_data, mode, x)
+            if r is None:
+                return search_staged(key_list, wav_data, mode, dev, x)
+            results.append(r)
+        return results
 
 
 _K_CAP = 1024
@@ -402,6 +408,192 @@ def _launch(searcher, args, K: int) -> dict:
     x, C, n_valid, n_samp_rel, sil_first, sil_last, core_lo, core_hi = args
     return searcher(x, C, K, n_valid, n_samp_rel, sil_first, sil_last,
                     core_lo, core_hi, extract=False)
+
+
+def group_device_count(device: DeviceLike = None) -> int:
+    """Devices for the chunk-group search of the get path
+    (device.card_count)."""
+    return card_count(device)
+
+
+def _padded_frames(wav_data) -> int:
+    """Frames of the padded search length for a stream, a partial last
+    frame included (as _search_fused_one pads)."""
+    true_frames = wav_data.samples.size // wav_data.n_channels
+    return search_fused.bucket_frames(-(-true_frames // Params.frame_size))
+
+
+def _upload_padded(wav_data, T: int, device: torch.device,
+                   x: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """wav_data's samples on `device`, zero-padded to T frames; x: the
+    samples where a device holds them already."""
+    x = upload(wav_data, device) if x is None else x.to(device)
+    return torch.cat([x, x.new_zeros(
+        T * Params.frame_size * wav_data.n_channels - x.shape[0])])
+
+
+def _select_rows(key: Key, out_np: dict, n_starts, K: int, clip: bool,
+                 complete: bool) -> Optional[List[KeyResult]]:
+    """The CLI selection on every row of a group's fetched outputs; None
+    when a row's slots are saturated."""
+    key_rs = []
+    for i, n in enumerate(n_starts):
+        if n <= 0:
+            key_rs.append(KeyResult(key=key))
+            continue
+        r = _select_from_fused(key, {k: v[i] for k, v in out_np.items()}, K,
+                               clip, complete)
+        if r is None:
+            return None
+        key_rs.append(r)
+    return key_rs
+
+
+def search_block_group(key_list: List[Key], wav_list,
+                       device: DeviceLike = None,
+                       xs: Optional[list] = None) -> Optional[list]:
+    """BLOCK search over a group of chunks: ONE batched launch per key
+    scores every chunk, the rows split over group_device_count() devices
+    (the reference's analogue is the ThreadPool fan-out in
+    src/syncfinder.cc:607-657).
+
+    Returns per-chunk List[KeyResult] equal to `search(key_list, chunk,
+    BLOCK)` per chunk, or None if any chunk needs another path (chunks
+    past MAX_FUSED_FRAMES, saturated slots at _K_CAP, degenerate sizes,
+    --test-no-sync): the caller then searches chunk by chunk.  xs: per
+    chunk its samples on a device (upload's form) or None."""
+    if Params.test_no_sync or len(wav_list) < 2:
+        return None
+    n_dev = group_device_count(device)
+    n_channels = wav_list[0].n_channels
+    T = max(_padded_frames(w) for w in wav_list)
+    if T > search_fused.MAX_FUSED_FRAMES:
+        return None
+    B = -(-len(wav_list) // n_dev) * n_dev      # rows, zero rows included
+    devices = spread(device, n_dev)
+    per = B // n_dev
+
+    # each chunk uploaded once, to the device of its row
+    have = xs if xs is not None else [None] * len(wav_list)
+    xs = []
+    for i in range(B):
+        dev = devices[i // per]
+        xs.append(_upload_padded(wav_list[i], T, dev, have[i])
+                  if i < len(wav_list)
+                  else torch.zeros(T * Params.frame_size * n_channels,
+                                   device=dev))
+    zeros = [0] * B
+
+    per_chunk: list = [[] for _ in wav_list]
+    for key in key_list:
+        tables = get_key_tables(key)
+        total = tables.frames_per_block
+        n_starts_s = SHIFTS * (T - 1 - total)
+        if n_starts_s <= 0:
+            return None
+        n_starts, frames, sil_last = list(zeros), list(zeros), list(zeros)
+        for i, wav in enumerate(wav_list):
+            true_frames = wav.samples.size // n_channels
+            n_starts[i] = max(
+                SHIFTS * (true_frames // Params.frame_size - 1 - total), 0)
+            frames[i] = true_frames
+            sil_last[i] = wav.samples.size
+
+        group = search_fused.build_searcher_group(tables, False, devices)
+        k_min = 0
+        while True:
+            K, complete = _fused_k_for(T, total, n_starts_s, k_min)
+            out_np = group.fetch(group(xs, n_channels, K, n_starts, frames,
+                                       zeros, sil_last, zeros,
+                                       [n_starts_s] * B))
+            key_rs = _select_rows(key, out_np, n_starts[:len(wav_list)], K,
+                                  False, complete)
+            if key_rs is not None:
+                break
+            if complete or K >= _K_CAP:
+                return None
+            k_min = K * 4               # a saturated chunk: escalate K
+        for i, r in enumerate(key_rs):
+            per_chunk[i].append(r)
+    return per_chunk
+
+
+def search_clip_pair_launch(key_list: List[Key], wav_list,
+                            device: DeviceLike = None
+                            ) -> Optional[Callable[[], Optional[list]]]:
+    """The launching half of search_clip_pair: upload the clip decoder's
+    padded windows and enqueue one batched search per key WITHOUT reading
+    anything back.  Returns a zero-argument finish() that reads back and
+    selects (escalating K on saturated slots), or None when the pair
+    search does not apply up front.
+
+    The split lets the get path enqueue the clip search before the block
+    search's blocking read, so the card scores the clip windows while the
+    host waits for and selects from the block results."""
+    if Params.test_no_sync or len(wav_list) < 2:
+        return None
+    C = wav_list[0].n_channels
+    T = max(_padded_frames(w) for w in wav_list)
+    if T > search_fused.MAX_FUSED_FRAMES:
+        return None              # clips are short; oversize -> per window
+    B = len(wav_list)
+    dev = resolve(device)
+
+    with prof.phase("get.search_clip"):
+        sil = [_scan_silence(w.samples) for w in wav_list]
+        xs = [_upload_padded(w, T, dev) for w in wav_list]
+        pending = []
+        for key in key_list:
+            tables = get_key_tables(key)
+            total = 2 * tables.frames_per_block
+            n_starts_s = SHIFTS * (T - 1 - total)
+            if n_starts_s <= 0:
+                return None
+            sizes = [w.samples.size for w in wav_list]
+            args = ([max(SHIFTS * (s // C // Params.frame_size - 1 - total),
+                         0) for s in sizes],
+                    [s // C for s in sizes],
+                    [a for a, _ in sil], [b for _, b in sil],
+                    [0] * B, [n_starts_s] * B)
+            K, complete = _fused_k_for(T, tables.frames_per_block,
+                                       n_starts_s)
+            group = search_fused.build_searcher_group(tables, True, [dev])
+            out = group(xs, C, K, *args)         # enqueued, not read
+            pending.append((key, tables, group, n_starts_s, args, K,
+                            complete, out))
+
+    def finish() -> Optional[List[List[KeyResult]]]:
+        with prof.phase("get.search_clip"):
+            per_window: List[List[KeyResult]] = [[] for _ in wav_list]
+            for key, tables, group, n_starts_s, args, K, complete, out \
+                    in pending:
+                while True:
+                    key_rs = _select_rows(key, group.fetch(out), args[0], K,
+                                          True, complete)
+                    if key_rs is not None:
+                        break
+                    if complete or K >= _K_CAP:
+                        return None
+                    K, complete = _fused_k_for(T, tables.frames_per_block,
+                                               n_starts_s, K * 4)
+                    out = group(xs, C, K, *args)
+                for i, r in enumerate(key_rs):
+                    per_window[i].append(r)
+            return per_window
+
+    return finish
+
+
+def search_clip_pair(key_list: List[Key], wav_list,
+                     device: DeviceLike = None
+                     ) -> Optional[List[List[KeyResult]]]:
+    """CLIP search over the clip decoder's padded start and end windows in
+    ONE batched launch per key.  Returns per-window List[KeyResult] equal
+    to `search(key_list, window, CLIP)`, or None when the caller must
+    search per window (--test-no-sync, an oversize window, slots saturated
+    at _K_CAP)."""
+    fin = search_clip_pair_launch(key_list, wav_list, device)
+    return fin() if fin is not None else None
 
 
 def search_staged(key_list: List[Key], wav_data, mode: SyncMode,

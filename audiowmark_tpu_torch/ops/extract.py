@@ -52,7 +52,7 @@ def layout(tables: KeyTables, device):
 def block_raw(x: torch.Tensor, starts: torch.Tensor, awin: torch.Tensor,
               lay_frame: torch.Tensor, lay_up: torch.Tensor,
               lay_dn: torch.Tensor, count: int, mix: bool, group: int,
-              fpb: int) -> torch.Tensor:
+              fpb: int, batch: int = _BATCH) -> torch.Tensor:
     """Raw (pre-bit-order, pre-normalize) soft bits (K, n_coded) for block
     starts `starts` (K,) (per-channel sample indices) in x (n, C).
 
@@ -63,7 +63,8 @@ def block_raw(x: torch.Tensor, starts: torch.Tensor, awin: torch.Tensor,
 
     A start reading past the end is clamped to the last whole block, as
     dynamic_slice does in the JAX package; callers drop those candidates
-    (index + count*FRAME <= frames, as the reference skips them)."""
+    (index + count*FRAME <= frames, as the reference skips them).  The
+    starts go through in passes of `batch`."""
     n, C = x.shape
     span = count * FRAME
     starts = torch.clamp(starts.to(torch.int64), 0, max(n - span, 0))
@@ -74,8 +75,8 @@ def block_raw(x: torch.Tensor, starts: torch.Tensor, awin: torch.Tensor,
     prv = frames - 1
     prv[0] = 1
     out = []
-    for k0 in range(0, starts.shape[0], _BATCH):
-        idx = starts[k0:k0 + _BATCH, None] + ar[None, :]     # (k, span)
+    for k0 in range(0, starts.shape[0], batch):
+        idx = starts[k0:k0 + batch, None] + ar[None, :]      # (k, span)
         w = x[idx].reshape(-1, count, FRAME, C).transpose(2, 3)
         db = db_bands(w, awin)                              # (k, count, C, NB)
         # background subtraction with edge reflection + channel sum

@@ -13,13 +13,16 @@ The audio is padded to T frames (bucket_frames) and the true extent
 enters as n_starts / n_sample_frames, so K and every mask match the JAX
 package's for the same input; a tile of a long stream also passes the
 core range it may take candidates from, and skips the raws.  The stages
-are ops/sync.py's.
+are ops/sync.py's.  `SearcherGroup` is the search with a leading batch
+dimension: rows of one padded length with per-row extents, split over a
+list of devices.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -211,3 +214,55 @@ def sync_searcher(tables: KeyTables, clip_mode: bool,
         hit = (tables, SyncSearcher(tables, clip_mode, dev))
         _searchers[k] = hit
     return hit[1]
+
+
+class SearcherGroup:
+    """The search over a batch of B rows padded to one length, split over
+    `devices` in contiguous shares (B divides by their number): the
+    counterpart of the JAX package's build_searcher_group.  A device may
+    appear more than once (logical shards on one device).  Every row is
+    enqueued on its device before anything is read; `fetch` reads back."""
+
+    def __init__(self, tables: KeyTables, clip_mode: bool,
+                 devices: Sequence[torch.device]):
+        self.devices = list(devices)
+        self.searchers = [sync_searcher(tables, clip_mode, d)
+                          for d in self.devices]
+
+    def __call__(self, xs: Sequence[torch.Tensor], n_channels: int, K: int,
+                 n_starts: Sequence[int], frames: Sequence[int],
+                 sil_first: Sequence[int], sil_last: Sequence[int],
+                 core_lo: Sequence[int], core_hi: Sequence[int]
+                 ) -> List[Dict[str, torch.Tensor]]:
+        """xs: B rows (T*FRAME*C,) f32, row i on device i // (B / n_dev),
+        with SyncSearcher.forward's scalar arguments per row.  Returns one
+        dict per device share, of (B / n_dev, K, ...) tensors (the fields
+        of SyncSearcher.forward) on that device."""
+        B = len(xs)
+        n_dev = len(self.devices)
+        if B % n_dev:
+            raise ValueError("%d rows do not divide over %d devices"
+                             % (B, n_dev))
+        per = B // n_dev
+        shares = []
+        for d, searcher in enumerate(self.searchers):
+            rows = [searcher(xs[i], n_channels, K, int(n_starts[i]),
+                             int(frames[i]), int(sil_first[i]),
+                             int(sil_last[i]), int(core_lo[i]),
+                             int(core_hi[i]))
+                    for i in range(d * per, (d + 1) * per)]
+            shares.append({k: torch.stack([r[k] for r in rows])
+                           for k in rows[0]})
+        return shares
+
+    @staticmethod
+    def fetch(shares: List[Dict[str, torch.Tensor]]
+              ) -> Dict[str, np.ndarray]:
+        """The shares on the host: a dict of (B, K, ...) numpy arrays."""
+        return {k: np.concatenate([s[k].cpu().numpy() for s in shares])
+                for k in shares[0]}
+
+
+def build_searcher_group(tables: KeyTables, clip_mode: bool,
+                         devices: Sequence[torch.device]) -> SearcherGroup:
+    return SearcherGroup(tables, clip_mode, devices)

@@ -17,8 +17,9 @@ relative speeds a gather plus a one-hot segment sum (a matmul) over
 int64, letter for letter as the reference rounds them, and added and
 shifted as int64 on the device.
 
-`speed_scan` uploads the clip once, keeps every centre's mag matrix on the
-device and brings back only the (centres x rels) quality grid; it drops the
+`speed_scan` uploads the clip once per device, splits the centres over the
+cards (`scan_device_count`), keeps every centre's mag matrix on its device
+and brings back only the (centres x rels) quality grid; it drops the
 (block, entry) pairs that no state can reach in this scan's clip (the
 reference's have_mag == 0 rows), which changes no value.
 """
@@ -32,7 +33,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve
+from ..device import DeviceLike, card_count, resolve, spread
 from ..params import Params
 from ..tables import KeyTables
 from .resample import resample_frames
@@ -291,29 +292,46 @@ def compare_speed_batch(D: np.ndarray, sync_bits: SpeedSyncBits,
             for i, rel in enumerate(relative_speeds)]
 
 
+def scan_device_count(device: DeviceLike = None) -> int:
+    """Devices the speed scan splits its centres over
+    (device.card_count)."""
+    return card_count(device)
+
+
 def speed_scan(clip_samples: np.ndarray, n_channels: int,
                centers: Sequence[float], scan_seconds: float,
                rels: Sequence[float], sync_bits: SpeedSyncBits,
                device: DeviceLike = None
                ) -> List[List[Tuple[float, float]]]:
     """Qualities for every (centre, rel) pair, with the clip uploaded once
-    and one read of the (centres x rels) grid at the end.  Returns, per
+    per device and one read of the (centres x rels) grid at the end.  The
+    centres split over scan_device_count() devices in contiguous shares,
+    each share enqueued on its device before anything is read; a centre's
+    arithmetic is the same on whichever device it runs.  Returns, per
     centre, [(quality, centre * rel)] in rel order: the values that
     prepare_mag_matrix + compare_speed_batch give centre by centre."""
-    dev = resolve(device)
+    resolve(device)
     clip_frames = clip_samples.size // n_channels
     max_rows = max(mag_rows(int(round(
         _scan_in_frames(clip_frames, c, scan_seconds) * (c / 2))))
         for c in centers)
     if max_rows > 0:
-        x = _upload_clip(clip_samples, n_channels, dev)
-        win = torch.from_numpy(_sub_window()).to(dev)
-        v = torch.from_numpy(sync_bits.v).to(dev)
-        tables = _compare_tables(rels, sync_bits, max_rows, dev)
-        grid = torch.stack([
-            compare_speed_core(
-                _center_mag_matrix(x, c, scan_seconds, win, v), tables)
-            for c in centers]).cpu().numpy()
+        n_dev = min(scan_device_count(device), len(centers))
+        per = -(-len(centers) // n_dev)
+        shares = []
+        for i, dev in enumerate(spread(device, n_dev)):
+            mine = centers[i * per:(i + 1) * per]
+            if not len(mine):
+                continue
+            x = _upload_clip(clip_samples, n_channels, dev)
+            win = torch.from_numpy(_sub_window()).to(dev)
+            v = torch.from_numpy(sync_bits.v).to(dev)
+            tables = _compare_tables(rels, sync_bits, max_rows, dev)
+            shares.append(torch.stack([
+                compare_speed_core(
+                    _center_mag_matrix(x, c, scan_seconds, win, v), tables)
+                for c in mine]))
+        grid = np.concatenate([s.cpu().numpy() for s in shares])
     else:
         grid = np.zeros((len(centers), len(rels)), dtype=np.float32)
     return [[(float(grid[k, r]), rel * center) for r, rel in enumerate(rels)]

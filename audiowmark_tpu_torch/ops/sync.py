@@ -262,11 +262,12 @@ def local_mean(scores: torch.Tensor, valid: Optional[torch.Tensor] = None,
 
 def refine_grid_scores(xpadT: torch.Tensor, bases: torch.Tensor,
                  n_sample_frames: int, sb: DeviceSyncBits, awin: torch.Tensor,
-                 silence_bounds: Optional[Tuple[int, int]] = None):
+                 silence_bounds: Optional[Tuple[int, int]] = None,
+                 batch: int = _REFINE_BATCH):
     """Qualities on the reference's fine grid around each candidate start:
     positions start, start+fine, ... with start = max(base - step, 0), up
-    to base + step (src/syncfinder.cc:427-442), in passes of
-    _REFINE_BATCH candidates.
+    to base + step (src/syncfinder.cc:427-442), in passes of `batch`
+    candidates.
 
     xpadT: (C, n + _SPAN) channels-first samples with _SPAN zeros after
     them; bases: (K,) int64 sample indices.  Returns positions (K, 65),
@@ -283,8 +284,8 @@ def refine_grid_scores(xpadT: torch.Tensor, bases: torch.Tensor,
     valid = ((pos <= (bases + step)[:, None])
              & (pos + sb.total_frames * FRAME <= n_sample_frames))
     quals = []
-    for k0 in range(0, bases.shape[0], _REFINE_BATCH):
-        k1 = k0 + _REFINE_BATCH
+    for k0 in range(0, bases.shape[0], batch):
+        k1 = k0 + batch
         span_starts = torch.clamp(
             gstart[k0:k1, None] + sb.frames * FRAME, 0,
             xpadT.shape[1] - _SPAN)                         # (k, J)

@@ -1,13 +1,15 @@
 """Where the time goes in the port's add and get, on one CUDA card.
 
-    python3 -m audiowmark_tpu_torch.profile_cells [--out FILE]
+    python3 -m audiowmark_tpu_torch.profile_cells [--out FILE] [--only fleet]
 
 Makes the fixtures of chip_smoke.py in a temporary directory (200 s of
 the CLI's test-gen-noise at 44.1 and at 32 kHz, 32 min of seeded noise at
 44.1 kHz; 30 s of test-gen-noise, marked and played at speed 0.9764) and
-drives seven calls through the user's entry points: add, then get as `cmp`,
-of each of the first three, and `cmp --detect-speed` of the last.  Every
-call runs four times:
+drives nine calls through the user's entry points: add, then get as `cmp`,
+of each of the first three, `cmp --detect-speed` of the last, and the fleet
+API's `watermark_batch` and `detect_batch(top_k=8)` on 16 stereo streams of
+60 s of seeded noise (`--only fleet`: these two alone).  Every call runs
+four times:
 
   1. first: the first call of its kind in the process (cuFFT plans,
      allocator growth), wall seconds;
@@ -104,6 +106,8 @@ def profile_call(name, fn, report):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="profile_cells.txt")
+    ap.add_argument("--only", choices=["fleet"],
+                    help="profile the fleet API's two calls alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_cells: no CUDA device", file=sys.stderr)
@@ -140,7 +144,26 @@ def main(argv=None) -> int:
                              "match_count %s:\n%s"
                              % (path, rc, expect, out.getvalue()))
 
+    def fleet_calls():
+        import numpy as np
+        from .parallel.batch import detect_batch, watermark_batch
+        rng = np.random.default_rng(16)
+        audio = (rng.random((16, 60 * 44100, 2), dtype=np.float32)
+                 - np.float32(0.5)) * np.float32(0.6)
+        marked = watermark_batch(key, audio, MSG)
+        return [("watermark_batch_16x60s",
+                 lambda: watermark_batch(key, audio, MSG)),
+                ("detect_batch_16x60s_top8",
+                 lambda: detect_batch(key, marked, top_k=8))]
+
     with tempfile.TemporaryDirectory(dir=".", prefix=".profile_cells_") as d:
+        if args.only == "fleet":
+            for name, fn in fleet_calls():
+                profile_call(name, fn, report)
+            with open(args.out, "w") as f:
+                f.write("\n".join(report) + "\n")
+            return 0
+
         def path(name):
             return os.path.join(d, name)
 
@@ -162,7 +185,7 @@ def main(argv=None) -> int:
             ("get_44k_30s_detect_speed",
              lambda: cmp(path("w30_slow.wav"), 1, detect_speed=True)),
         ]
-        for name, fn in calls:
+        for name, fn in calls + fleet_calls():
             profile_call(name, fn, report)
 
     with open(args.out, "w") as f:

@@ -63,14 +63,47 @@ get_watermark as `cmp` — on deterministic 16-bit stereo noise at 44.1 kHz
      setting (so on the card): test-gen-noise (bytes equal to the 200 s
      fixture) -> add -> cmp --expect-matches 5 -> exit 0, --expect-matches
      4 -> exit 1, get --json -> the message in the JSON matches, a missing
-     file -> exit 1 with `audiowmark: error loading`.
+     file -> exit 1 with `audiowmark: error loading`;
+ 16. fleet: 16 stereo streams of 60 s of seeded noise through
+     parallel.batch.watermark_batch, then detect_batch(top_k=8): in every
+     stream the best eligible slot lies within half a frame of the first
+     block's start (sample 256000) and its 128 bits are the message; in
+     stream 0 every eligible slot above the sync threshold is one of the
+     CLI search's candidates (same sample, same block type) and both have
+     the same best one; each detect_batch launches K1 once, with 256 rows,
+     and on those very branch metrics K1 equals its plain version bit for
+     bit; first and warm seconds of both calls, seconds of audio per
+     second, and the refine's, the extraction's and the Viterbi's share of
+     a third, instrumented detect_batch;
+ 17. group: with logical devices on the one card, batch_embed_sharded on a
+     (2, 2) mesh equals the (1, 1) one, 0 samples apart; search_block_group
+     on two 6-min chunks of the 32-min file equals the per-chunk search and
+     search_clip_pair the per-window search (indices, block types and
+     qualities exact); cmp of the 32-min file prints the same with
+     AUDIOWMARK_PREFETCH=0 and 1, and with 6-min chunks searched in groups
+     of two the same as one by one; walls of each;
+ 18. hls: the 200 s fixture cut into 20 AAC segments of ~10 s with a
+     playlist (the recipe of tests/test_hls_e2e.py), hls-prepare, hls-add
+     of every segment through the command line's main on the card, the
+     segments decoded and joined, cmp finds the message.  The phase's line
+     says ffshim.available(); where the codec shim does not load it names
+     the libraries that are missing and runs hls-add's work apart from AAC
+     and MPEG-TS (hls_without_codec below);
+ 19. profile: AUDIOWMARK_PROFILE=<dir> python3 -m audiowmark_tpu_torch cmp
+     of the 200 s marked file as a subprocess: exit 0, one Chrome trace in
+     <dir> that parses as JSON and holds a viterbi_acs kernel event.
 
-Every phase 9-15 prints one line.  Each path (the main path of phases
+Every phase 9-19 prints one line.  Each path (the main path of phases
 5-7; the 32 kHz add and get, the 48 kHz get, the streaming add and its
-get, the --test-no-sync get, the 32-min add and get, the speed gets) has
-K1's launch count reset to 0 just before it and read just after: each
-must be above 0.  The kernels line gives their sum as `launches` and each
+get, the --test-no-sync get, the 32-min add and get, the speed gets, the
+fleet calls, the gets of phase 17, the HLS get) has K1's launch count reset
+to 0 just before it and read just after: each must be above 0.  The kernels line gives their sum as `launches` and each
 of them in `launches_by_path`.
+
+`python3 chip_smoke.py --new-only` makes the fixtures that phases 16-19
+read (the 200 s, 60 s and 32-min marked files) without the checks of
+phases 3-15 and runs phases 1, 2 and 16-19 alone; it prints no kernels
+line.
 
 Any failed check raises: the script exits non-zero and prints no result.
 Without a CUDA device it exits 1 before any work.  On success the line
@@ -147,24 +180,33 @@ def launches_of(path, fn):
 
 
 def k1_check(seed, batch, steps):
-    """K1 vs its plain version on fixtures.acs_check_metrics rows: packed
-    and unpacked decisions, metrics (NaN = NaN) and bits exact.  Returns
-    the check's numbers: ms and plain ms by CUDA events, the bound (bytes
-    at 3.35 TB/s) and its share, the cluster size."""
-    from audiowmark_tpu_torch.fixtures import acs_check_metrics, acs_equal
+    """K1 vs its plain version on fixtures.acs_check_metrics rows (clean
+    codewords, a NaN row, random rows); see k1_check_bm."""
+    from audiowmark_tpu_torch.fixtures import acs_check_metrics
+    return k1_check_bm(acs_check_metrics(seed, batch, steps, "cuda"),
+                       nan_row=batch >= 4)
+
+
+def k1_check_bm(bm, nan_row=False):
+    """K1 vs its plain version on the branch metrics bm: packed and
+    unpacked decisions, metrics (NaN = NaN) and bits exact.  Returns the
+    check's numbers: ms and plain ms by CUDA events, the bound (bytes at
+    3.35 TB/s) and its share, the cluster size."""
+    from audiowmark_tpu_torch.fixtures import acs_equal
     from audiowmark_tpu_torch.k1_bench import bound_ms
     from audiowmark_tpu_torch.ops import viterbi
-    bm = acs_check_metrics(seed, batch, steps, "cuda")
+    batch, steps = bm.shape[:2]
     got = viterbi.viterbi_acs(bm)
     want = viterbi.viterbi_acs_plain(bm)
     check(acs_equal(got, want) and torch.equal(
         viterbi.unpack_decisions(got[0]), viterbi.unpack_decisions(want[0])),
         "K1 differs from the plain version at B=%d" % batch)
     n_nan = int(torch.isnan(got[1]).sum())
-    check(batch < 4 or n_nan == viterbi.STATE_COUNT,
+    check(not nan_row or n_nan == viterbi.STATE_COUNT,
           "the NaN row's metrics are not NaN")
     # the NaNs sit at the same places (checked above) and count as 0 apart
     max_abs_err = float(torch.nan_to_num(got[1] - want[1]).abs().max())
+    del got, want
     ms = cuda_ms(lambda: viterbi.viterbi_acs(bm), 20)
     plain_ms = cuda_ms(lambda: viterbi.viterbi_acs_plain(bm), 3)
     bound = bound_ms(batch, steps)
@@ -369,13 +411,16 @@ def phase_staged(key, d, smi):
     phase("staged", card=smi, **fields)
 
 
-def batches_of(fn):
-    """(fn(), the (B, steps) shapes the decoders gave K1 while it ran)."""
+def batches_of(fn, keep=None):
+    """(fn(), the (B, steps) shapes the decoders gave K1 while it ran);
+    keep: a list that receives the last of those branch-metric tensors."""
     from audiowmark_tpu_torch.codec import convcode
     shapes, acs = [], convcode.viterbi_acs
 
     def recording(bm):
         shapes.append(tuple(bm.shape[:2]))
+        if keep is not None:
+            keep[:] = [bm]
         return acs(bm)
 
     convcode.viterbi_acs = recording
@@ -609,6 +654,433 @@ def phase_cli(d, smi):
           **seconds)
 
 
+FLEET_STREAMS, FLEET_SECONDS, FLEET_TOP_K = 16, 60, 8
+
+
+def phase_fleet(key, smi):
+    """16. watermark_batch then detect_batch on 16 x 60 s.  Returns K1's
+    launches over the fleet calls, K1's check on the branch metrics that
+    detect_batch gave it, and the marked batch."""
+    from audiowmark_tpu_torch.io.wavdata import WavData
+    from audiowmark_tpu_torch.models import syncfinder as sf
+    from audiowmark_tpu_torch.models.common import parse_payload
+    from audiowmark_tpu_torch.ops import detect_fused
+    from audiowmark_tpu_torch.codec import convcode
+    from audiowmark_tpu_torch.parallel import batch as fleet
+    from audiowmark_tpu_torch.params import Params
+    set_params()
+    B, K = FLEET_STREAMS, FLEET_TOP_K
+    n = FLEET_SECONDS * 44100
+    rng = np.random.default_rng(16)
+    audio = (rng.random((B, n, 2), dtype=np.float32) - np.float32(0.5)) \
+        * np.float32(0.6)
+    audio_s = float(B * FLEET_SECONDS)
+    kept = []
+
+    def calls():
+        t = {}
+        marked, t["watermark_first_s"] = timed(
+            lambda: fleet.watermark_batch(key, audio, MSG))
+        marked, t["watermark_warm_s"] = timed(
+            lambda: fleet.watermark_batch(key, audio, MSG))
+        out, t["detect_first_s"] = timed(
+            lambda: fleet.detect_batch(key, marked, top_k=K))
+        out, t["detect_warm_s"] = timed(
+            lambda: fleet.detect_batch(key, marked, top_k=K))
+        return marked, out, t
+
+    ((marked, out, times), shapes), launches = launches_of(
+        "the fleet path", lambda: batches_of(calls, kept))
+    steps = (Params.payload_size + 15)
+    check(launches == 2 and shapes == [(B * 2 * K, steps)] * 2,
+          "detect_batch gave K1 %s in %d launches" % (shapes, launches))
+    check(marked.shape == audio.shape and np.isfinite(marked).all()
+          and float(np.abs(marked - audio).max()) > 1e-4,
+          "watermark_batch returned something else than marked audio")
+
+    want = parse_payload(MSG).tolist()
+    expect0 = Params.frames_pad_start * 1024
+    for b in range(B):
+        q = np.where(out["eligible"][b], out["qualities"][b], -1.0)
+        best = int(np.argmax(q))
+        check(q[best] > Params.sync_threshold2
+              and abs(int(out["positions"][b][best]) - expect0) < 512
+              and bool(out["block_is_a"][b][best])
+              and out["bits"][b][best].tolist() == want,
+              "stream %d: best slot %d at %d, quality %g, errors %g" % (
+                  b, best, out["positions"][b][best], q[best],
+                  out["errors"][b][best]))
+    check(out["bits"].shape == (B, K, Params.payload_size)
+          and np.isfinite(out["qualities"]).all(), "detect_batch's shapes")
+
+    # stream 0 against the CLI search on the same samples: the detector
+    # keeps the top K of the approximate scores and the CLI the n best of
+    # the refined ones, so the sets differ below the threshold; what is
+    # above it must be the same candidates
+    wav = WavData(marked[0].reshape(-1).copy(), 2, 44100, 16)
+    cli = {(s.index, s.block_type.name): s.quality
+           for s in sf.search([key], wav, sf.SyncMode.BLOCK)[0].sync_scores}
+    det = {(int(p), "a" if a else "b"): float(q) for p, a, q, e in zip(
+        out["positions"][0], out["block_is_a"][0], out["qualities"][0],
+        out["eligible"][0]) if e}
+    above = {k: q for k, q in det.items() if q > Params.sync_threshold2}
+    common = set(cli) & set(det)
+    check(above and set(above) <= set(cli)
+          and max(cli, key=cli.get) == max(det, key=det.get)
+          and all(abs(cli[k] - det[k]) <= 2e-4 * det[k] + 2e-5
+                  for k in common),
+          "stream 0: detector %s, CLI search %s" % (det, cli))
+
+    # K1 on the very branch metrics detect_batch gave it
+    k1 = k1_check_bm(kept.pop())
+
+    # where a third detect_batch spends its time: each stage synchronised
+    spent = {"refine": 0.0, "extract": 0.0, "viterbi": 0.0}
+    refine, extract = detect_fused.refine_grid_scores, detect_fused.block_raw
+    forward = convcode.ViterbiDecoder.forward
+
+    def clocked(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            r, s = timed(lambda: fn(*a, **kw))
+            spent[name] += s
+            return r
+        return run
+
+    detect_fused.refine_grid_scores = clocked("refine", refine)
+    detect_fused.block_raw = clocked("extract", extract)
+    convcode.ViterbiDecoder.forward = clocked("viterbi", forward)
+    try:
+        _, whole = timed(lambda: fleet.detect_batch(key, marked, top_k=K))
+    finally:
+        detect_fused.refine_grid_scores = refine
+        detect_fused.block_raw = extract
+        convcode.ViterbiDecoder.forward = forward
+    phase("fleet", streams=B, seconds_each=FLEET_SECONDS, top_k=K,
+          frames=n // 1024, k1_launches=launches, k1_batches=shapes,
+          k1_check=k1, eligible_stream0=len(det),
+          above_threshold_stream0=len(above), cli_scores_stream0=len(cli),
+          common_stream0=len(common),
+          watermark_audio_s_per_s=audio_s / times["watermark_warm_s"],
+          detect_audio_s_per_s=audio_s / times["detect_warm_s"],
+          instrumented_detect_s=whole,
+          refine_share=spent["refine"] / whole,
+          extract_share=spent["extract"] / whole,
+          viterbi_share=spent["viterbi"] / whole, card=smi, **times)
+    return launches, k1, marked
+
+
+def score_tuples(key_results):
+    return [[(s.index, s.block_type.name, s.quality) for s in kr.sync_scores]
+            for kr in key_results]
+
+
+def phase_group(port, key, d, marked, smi):
+    """17. the sharded embed, the group and pair searches and the prefetch
+    thread against their serial forms, with logical devices on the one
+    card.  Returns K1's launches over the phase's gets."""
+    from audiowmark_tpu_torch.io.wavdata import WavData
+    from audiowmark_tpu_torch.models import syncfinder as sf
+    from audiowmark_tpu_torch.models.chunkloader import WavChunkLoader
+    from audiowmark_tpu_torch.models.decoder import ClipDecoder
+    from audiowmark_tpu_torch.ops import search_fused
+    from audiowmark_tpu_torch.parallel.mesh import (batch_embed_sharded,
+                                                    make_mesh)
+    fields = {}
+
+    # ---- the sharded embed: (2, 2) logical shards vs one ----
+    T = marked.shape[1] // 1024 // 2 * 2
+    frames = torch.from_numpy(marked[:4, :T * 1024]).reshape(
+        4, T, 1024, 2).transpose(2, 3)
+    mods = torch.from_numpy(np.random.default_rng(17).integers(
+        -1, 2, size=(4, T, 513)).astype(np.int8))
+    one, fields["embed_1x1_s"] = timed(lambda: batch_embed_sharded(
+        make_mesh(1), frames, mods, 0.01))
+    mesh = make_mesh(4, dp=2)
+    check(mesh.shape == (2, 2) and make_mesh(4).shape == (4, 1),
+          "make_mesh(4, dp=2) is %s" % (mesh.shape,))
+    four, fields["embed_2x2_s"] = timed(lambda: batch_embed_sharded(
+        mesh, frames, mods, 0.01))
+    apart = int(torch.count_nonzero(one != four))
+    check(apart == 0 and float((one - frames.cuda()).abs().max()) > 1e-4,
+          "the (2, 2) embed is %d samples from the (1, 1) one" % apart)
+    fields["embed_samples_apart"] = apart
+    del one, four, frames, mods
+
+    # ---- group search on two 6-min chunks of the 32-min file ----
+    wm = os.path.join(d, "wmlong.wav")
+    set_params(get_chunk_size=6.0)
+    loader = WavChunkLoader(wm)
+    chunks = []
+    for _ in range(2):
+        loader.load_next_chunk()
+        wav = loader.wav_data()
+        chunks.append(wav.with_samples(wav.samples))
+    loader.close()
+    check(all(search_fused.bucket_frames(c.n_frames // 1024 + 1)
+              <= search_fused.MAX_FUSED_FRAMES for c in chunks),
+          "a 6-min chunk is past the whole-stream search")
+    count = sf.group_device_count
+    check(count() == 1, "group_device_count() is %d on one card" % count())
+    sf.group_device_count = lambda device=None: 2
+    try:
+        group, fields["group_search_s"] = timed(
+            lambda: sf.search_block_group([key], chunks))
+    finally:
+        sf.group_device_count = count
+    check(group is not None, "search_block_group declined")
+    singles, fields["per_chunk_search_s"] = timed(
+        lambda: [sf.search([key], c, sf.SyncMode.BLOCK) for c in chunks])
+    for got, want in zip(group, singles):
+        check(score_tuples(got) == score_tuples(want) and got[0].sync_scores,
+              "group search %s, per chunk %s"
+              % (score_tuples(got), score_tuples(want)))
+    fields["group_scores"] = [len(g[0].sync_scores) for g in group]
+
+    # ---- clip pair on the 60 s file's windows ----
+    set_params()
+    wav60 = WavData.load(os.path.join(d, "wm60.wav"))
+    windows = [ClipDecoder(1)._build_window([key], wav60, pos)[0]
+               for pos in ("start", "end")]
+    pair, fields["clip_pair_s"] = timed(
+        lambda: sf.search_clip_pair([key], windows))
+    check(pair is not None, "search_clip_pair declined")
+    per_window, fields["per_window_s"] = timed(
+        lambda: [sf.search([key], w, sf.SyncMode.CLIP) for w in windows])
+    for got, want in zip(pair, per_window):
+        check(score_tuples(got) == score_tuples(want),
+              "clip pair %s, per window %s"
+              % (score_tuples(got), score_tuples(want)))
+    fields["clip_scores"] = [len(p[0].sync_scores) for p in pair]
+
+    # ---- the 32-min cmp: prefetch off, on, on, off; then in groups ----
+    def gets():
+        texts, walls = {}, {}
+        for i, flag in enumerate("0110"):
+            os.environ["AUDIOWMARK_PREFETCH"] = flag
+            _, walls["cmp_prefetch%s_run%d_s" % (flag, i)], text = cmp(
+                port, key, wm, None)
+            texts.setdefault(flag, text)
+            check(text == texts[flag], "two runs of one get differ")
+        check(texts["0"] == texts["1"] and "pattern" in texts["0"],
+              "cmp prints another report with the prefetch thread:\n%s\n%s"
+              % (texts["0"], texts["1"]))
+        _, walls["cmp_6min_serial_s"], serial = cmp(
+            port, key, wm, None, get_chunk_size=6.0)
+        sf.group_device_count = lambda device=None: 2
+        try:
+            _, walls["cmp_6min_groups_s"], grouped = cmp(
+                port, key, wm, None, get_chunk_size=6.0)
+        finally:
+            sf.group_device_count = count
+        check(grouped == serial and "pattern" in serial,
+              "cmp in groups of two prints another report:\n%s\n%s"
+              % (serial, grouped))
+        return walls
+
+    try:
+        walls, launches = launches_of("the gets of phase 17", gets)
+    finally:
+        os.environ.pop("AUDIOWMARK_PREFETCH", None)
+    phase("group", k1_launches=launches, card=smi, **fields, **walls)
+    return launches
+
+
+HLS_SEGMENTS = 20
+
+
+def hls_without_codec(port, key, d, smi):
+    """18. where the codec shim does not load: hls-add's work apart from
+    AAC and MPEG-TS.  Every ~10 s segment of the 200 s fixture, with the
+    context hls-prepare gives it (up to 3 s before, 3 s after, through
+    the FLAC round trip), goes through add_stream_watermark on the card
+    at zero_frames = start_pos - prev_size; the context is cut as
+    HLSOutputStream cuts it, the segments are joined as PCM and cmp finds
+    the message (a block spans five segments, so it decodes only if every
+    segment took its place in the stream's timeline).  Returns K1's
+    launches of the get."""
+    from audiowmark_tpu_torch.hls import hls
+    from audiowmark_tpu_torch.io.streams import AudioOutputStream
+    from audiowmark_tpu_torch.io.wavdata import WavData
+    from audiowmark_tpu_torch.models.embedder import add_stream_watermark
+    ldd = subprocess.run(
+        ["ldd", os.path.join(REPO, "native", "libffshim.so")],
+        capture_output=True, text=True).stdout
+    not_found = sorted(line.split()[0] for line in ldd.splitlines()
+                       if "not found" in line)
+
+    class Collect(AudioOutputStream):
+        def __init__(self):
+            self.parts = []
+
+        def sample_rate(self):
+            return rate
+
+        def n_channels(self):
+            return ch
+
+        def write_frames(self, samples):
+            self.parts.append(np.array(samples, dtype=np.float32))
+
+        def close(self):
+            pass
+
+    rate, ch = 44100, 2
+    seg = (10 * rate // 1024) * 1024
+    total, ctx = seg * HLS_SEGMENTS, 3 * rate
+    master = WavData.load(os.path.join(d, "n200.wav")).samples[:total * ch]
+    check(master.size == total * ch, "the 200 s fixture is too short")
+    flac_s, add_s, kept = 0.0, [], []
+    for k in range(HLS_SEGMENTS):
+        start = k * seg
+        prev = min(start, ctx)
+        signal = np.zeros((prev + seg + ctx) * ch, dtype=np.float32)
+        src = master[(start - prev) * ch:(start + seg + ctx) * ch]
+        signal[:src.size] = src
+        wav, s = timed(lambda: hls._flac_decode(
+            hls._flac_encode(signal, ch, rate)))
+        flac_s += s
+        out = Collect()
+        set_params()
+        with contextlib.redirect_stderr(io.StringIO()):
+            rc, s = timed(lambda: add_stream_watermark(
+                key, hls.MemoryInputStream(wav), out, MSG, start - prev))
+        add_s.append(s)
+        marked = np.concatenate(out.parts)
+        check(rc == 0 and marked.size >= (prev + seg) * ch
+              and np.isfinite(marked).all(),
+              "segment %d: exit %d, %d values" % (k, rc, marked.size))
+        kept.append(marked[prev * ch:(prev + seg) * ch])
+    joined = os.path.join(d, "hls_pcm.wav")
+    WavData(np.concatenate(kept), ch, rate, 16).save(joined)
+    (rc, get_s, text), launches = launches_of(
+        "the HLS get", lambda: cmp(port, key, joined, None))
+    counts = [line.split() for line in text.splitlines()
+              if line.startswith("match_count")]
+    check(rc == 0 and len(counts) == 1 and int(counts[0][1]) >= 1,
+          "cmp of the joined segments:\n" + text)
+    # the whole-file add of the same audio marks the same timeline
+    whole = WavData.load(os.path.join(d, "wm.wav")).samples[:total * ch]
+    lsb = np.abs(np.round((WavData.load(joined).samples.astype(np.float64)
+                           - whole) * 32768))
+    phase("hls", ffshim_available=False, not_found=not_found,
+          segments=HLS_SEGMENTS, segment_frames=seg, flac_round_trip_s=flac_s,
+          add_first_s=add_s[0], add_mean_s=float(np.mean(add_s[1:])),
+          add_total_s=float(sum(add_s)), get_s=get_s,
+          match_count=int(counts[0][1]), patterns=int(counts[0][2]),
+          lsb_from_whole_file_add_max=float(lsb.max()),
+          lsb_from_whole_file_add_samples=int(np.count_nonzero(lsb)),
+          samples=int(lsb.size), k1_launches=launches, card=smi)
+    return launches
+
+
+def phase_hls(port, key, d, smi):
+    """18. HLS: segments, hls-prepare, hls-add on the card, cmp.  Returns
+    K1's launches of the get."""
+    from audiowmark_tpu_torch import cli
+    from audiowmark_tpu_torch.io import ffshim
+    from audiowmark_tpu_torch.io.wavdata import WavData
+    available = bool(ffshim.available())
+    if not available:
+        return hls_without_codec(port, key, d, smi)
+    rate, ch, n_segments = 44100, 2, 20
+    seg_frames = (10 * rate // 1024) * 1024
+    master = WavData.load(os.path.join(d, "n200.wav"))
+    total = seg_frames * n_segments
+    check(master.n_frames >= total, "the 200 s fixture is too short")
+    samples = master.samples[: total * ch]
+    hls = os.path.join(d, "hls")
+    in_dir, prep, out = (os.path.join(hls, n) for n in ("in", "prep", "wm"))
+    os.makedirs(in_dir)
+    os.makedirs(out)
+    master_path = os.path.join(hls, "master.wav")
+    WavData(samples, ch, rate, 16).save(master_path)
+    t0 = time.perf_counter()
+    names = ["out%d.ts" % k for k in range(n_segments)]
+    for k, name in enumerate(names):
+        w = ffshim.HLSSegmentWriter(
+            os.path.join(in_dir, name), rate, ch, 192000, 0,
+            seg_frames // 1024, pts_start=k * seg_frames / rate)
+        w.write(samples[k * seg_frames * ch:(k + 1) * seg_frames * ch])
+        w.close()
+    lines = ["#EXTM3U", "#EXT-X-VERSION:3", "#EXT-X-TARGETDURATION:11",
+             "#EXT-X-MEDIA-SEQUENCE:0"]
+    for name in names:
+        lines += ["#EXTINF:%.6f," % (seg_frames / rate), name]
+    with open(os.path.join(in_dir, "out.m3u8"), "w") as f:
+        f.write("\n".join(lines + ["#EXT-X-ENDLIST"]) + "\n")
+    segment_s = time.perf_counter() - t0
+
+    def command(*argv):
+        set_params()
+        info = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(info):
+            rc = cli.main(list(argv))
+        torch.cuda.synchronize()
+        check(rc == 0, "%s: exit %d\n%s" % (" ".join(argv), rc,
+                                            info.getvalue()))
+        set_params()
+        return time.perf_counter() - t0
+
+    check("AUDIOWMARK_TORCH_DEVICE" not in os.environ,
+          "the hls commands would not run on the card")
+    prepare_s = command("hls-prepare", in_dir, prep, "out.m3u8", master_path)
+    add_s = [command("hls-add", os.path.join(prep, name),
+                     os.path.join(out, name), MSG) for name in names]
+    decoded = []
+    for k, name in enumerate(names):
+        dec, dch, drate = ffshim.decode_file(os.path.join(out, name))
+        check((dch, drate) == (ch, rate) and dec.size == seg_frames * ch,
+              "%s decodes to %d values" % (name, dec.size))
+        decoded.append(dec)
+    joined = os.path.join(hls, "wm.wav")
+    WavData(np.concatenate(decoded), ch, rate, 16).save(joined)
+    (rc, get_s, text), launches = launches_of(
+        "the HLS get", lambda: cmp(port, key, joined, None))
+    counts = [line.split() for line in text.splitlines()
+              if line.startswith("match_count")]
+    check(rc == 0 and len(counts) == 1 and int(counts[0][1]) >= 1,
+          "cmp of the joined HLS segments:\n" + text)
+    phase("hls", ffshim_available=True, segments=n_segments,
+          segment_frames=seg_frames, make_segments_s=segment_s,
+          prepare_s=prepare_s, add_first_s=add_s[0],
+          add_mean_s=float(np.mean(add_s[1:])), add_total_s=float(sum(add_s)),
+          get_s=get_s, match_count=int(counts[0][1]),
+          patterns=int(counts[0][2]), k1_launches=launches, card=smi)
+    return launches
+
+
+def phase_profile(d, smi):
+    """19. AUDIOWMARK_PROFILE around a cmp in a process of its own."""
+    env = {k: v for k, v in os.environ.items()
+           if k != "AUDIOWMARK_TORCH_DEVICE"}
+    trace_dir = os.path.join(d, "trace")
+    env["AUDIOWMARK_PROFILE"] = trace_dir
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "audiowmark_tpu_torch", "cmp",
+         os.path.join(d, "wm.wav"), MSG, "--expect-matches", "5"], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=600)
+    process_s = time.perf_counter() - t0
+    check(proc.returncode == 0 and "\nmatch_count 5 " in proc.stdout,
+          "the traced cmp: exit %d\n%s\n%s" % (proc.returncode, proc.stdout,
+                                               proc.stderr[-2000:]))
+    traces = [n for n in os.listdir(trace_dir) if n.endswith(".json")]
+    check(len(traces) == 1, "traces written: %s" % traces)
+    path = os.path.join(trace_dir, traces[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kernels if "viterbi_acs" in e.get("name", "")]
+    check(k1, "no viterbi_acs kernel event among %d kernel events"
+          % len(kernels))
+    phase("profile", process_s=process_s, trace_bytes=os.path.getsize(path),
+          events=len(events), kernel_events=len(kernels),
+          viterbi_acs_events=len(k1),
+          viterbi_acs_us=[e.get("dur") for e in k1], card=smi)
+
+
 def main_path(port, key, d, n200, wm200, smi):
     """5.-7. 200 s add and cmp (cold, warm), the SNR, 60 s and 30 s."""
     from audiowmark_tpu_torch.io.wavdata import WavData
@@ -634,11 +1106,67 @@ def main_path(port, key, d, n200, wm200, smi):
         phase("%ds" % secs, match_count=expect, add_s=add_s, get_s=get_s)
 
 
+def earlier_phases(port, key, d, smi, checks):
+    """5.-15.; returns K1's launches by path, the main path's K1 check and
+    the branch metrics' preparation time."""
+    from audiowmark_tpu_torch.ops import viterbi
+    # ---- 5.-7. the main path; K1's launch count starts at 0 here ----
+    n200, wm200 = os.path.join(d, "n200.wav"), os.path.join(d, "wm.wav")
+    viterbi.LAUNCHES = 0
+    _, shapes = batches_of(
+        lambda: main_path(port, key, d, n200, wm200, smi))
+
+    # ---- 8. the main path went through K1 ----
+    paths = {"main": viterbi.LAUNCHES}
+    check(paths["main"] > 0, "the main path never launched K1")
+    batch, steps = max(shapes)
+    checks.append(k1_check(2, batch, steps))
+    prep_ms = bm_prep_ms(batch, steps)
+    phase("launches", viterbi_acs=paths["main"],
+          k1_batches=sorted(set(shapes)), k1_check=checks[-1],
+          bm_prep_ms=prep_ms, card=smi)
+    main_check = checks[-1]
+
+    # ---- 9.-13. any rate, the streaming add, --test-no-sync, the
+    # staged and the tiled search; each path counts K1 on its own ----
+    paths.update(phase_resample(port, key, d, smi))
+    paths["stream_add"] = phase_stream_add(port, key, d, smi)
+    (_, get_s, _), paths["no_sync"] = launches_of(
+        "the --test-no-sync get",
+        lambda: cmp(port, key, wm200, 5, test_no_sync=True))
+    phase("no_sync", match_count=5, get_s=get_s,
+          k1_launches=paths["no_sync"], card=smi)
+    phase_staged(key, d, smi)
+    paths["long_32min"], long_check = phase_long(port, key, d, smi)
+    checks.append(long_check)
+
+    # ---- 14.-15. replay-speed detection, the command line ----
+    paths["speed"], speed_check = phase_speed(port, key, d, smi)
+    checks.append(speed_check)
+    phase_cli(d, smi)
+
+    return paths, main_check, prep_ms
+
+
+def fixtures_for_new(port, key, d):
+    """What phases 16-19 read of the earlier phases' files: the 200 s and
+    60 s marked files and the 32-min marked file."""
+    from audiowmark_tpu_torch.fixtures import long_noise
+    for src, dst in (("n200.wav", "wm.wav"), ("n60.wav", "wm60.wav")):
+        add(port, key, os.path.join(d, src), os.path.join(d, dst))
+    n = os.path.join(d, "nlong.wav")
+    long_noise(1, n, LONG_MINUTES * 60, 44100)
+    add(port, key, n, os.path.join(d, "wmlong.wav"))
+    os.remove(n)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port runs on a CUDA card",
               file=sys.stderr)
         return 1
+    new_only = sys.argv[1:] == ["--new-only"]
+    check(new_only or not sys.argv[1:], "usage: chip_smoke.py [--new-only]")
     t_script = time.perf_counter()
     import audiowmark_tpu_torch as port
     from audiowmark_tpu_torch.crypto.keys import Key
@@ -672,7 +1200,7 @@ def main() -> int:
 
     # ---- 3. K1 vs plain on the card ----
     checks = []
-    for batch in K1_BATCHES:
+    for batch in () if new_only else K1_BATCHES:
         checks.append(k1_check(batch, batch, K1_STEPS))
         phase("k1_check", decisions_differ=0, card=smi, **checks[-1])
 
@@ -701,42 +1229,24 @@ def main() -> int:
             gen_noise(key, os.path.join(d, "n%d.wav" % secs), secs, 44100)
         phase("fixtures", seconds=time.perf_counter() - t0)
 
-        # ---- 5.-7. the main path; K1's launch count starts at 0 here ----
-        n200, wm200 = os.path.join(d, "n200.wav"), os.path.join(d, "wm.wav")
-        viterbi.LAUNCHES = 0
-        _, shapes = batches_of(
-            lambda: main_path(port, key, d, n200, wm200, smi))
+        if new_only:
+            fixtures_for_new(port, key, d)
+            paths = {}
+        else:
+            paths, main_check, prep_ms = earlier_phases(port, key, d, smi,
+                                                        checks)
 
-        # ---- 8. the main path went through K1 ----
-        paths = {"main": viterbi.LAUNCHES}
-        check(paths["main"] > 0, "the main path never launched K1")
-        batch, steps = max(shapes)
-        checks.append(k1_check(2, batch, steps))
-        prep_ms = bm_prep_ms(batch, steps)
-        phase("launches", viterbi_acs=paths["main"],
-              k1_batches=sorted(set(shapes)), k1_check=checks[-1],
-              bm_prep_ms=prep_ms, card=smi)
-        main_check = checks[-1]
-
-        # ---- 9.-13. any rate, the streaming add, --test-no-sync, the
-        # staged and the tiled search; each path counts K1 on its own ----
-        paths.update(phase_resample(port, key, d, smi))
-        paths["stream_add"] = phase_stream_add(port, key, d, smi)
-        (_, get_s, _), paths["no_sync"] = launches_of(
-            "the --test-no-sync get",
-            lambda: cmp(port, key, wm200, 5, test_no_sync=True))
-        phase("no_sync", match_count=5, get_s=get_s,
-              k1_launches=paths["no_sync"], card=smi)
-        phase_staged(key, d, smi)
-        paths["long_32min"], long_check = phase_long(port, key, d, smi)
-        checks.append(long_check)
-
-        # ---- 14.-15. replay-speed detection, the command line ----
-        paths["speed"], speed_check = phase_speed(port, key, d, smi)
-        checks.append(speed_check)
-        phase_cli(d, smi)
+        # ---- 16.-19. the fleet API, groups and prefetch, HLS, the trace ----
+        paths["fleet"], fleet_check, marked = phase_fleet(key, smi)
+        checks.append(fleet_check)
+        paths["group"] = phase_group(port, key, d, marked, smi)
+        del marked
+        paths["hls"] = phase_hls(port, key, d, smi)
+        phase_profile(d, smi)
 
     phase("total", seconds=time.perf_counter() - t_script, card=smi)
+    if new_only:
+        return 0
 
     # the headline numbers are those at the main path's largest batch
     print(json.dumps({"kernels": [{
@@ -757,6 +1267,9 @@ def main() -> int:
         "cluster": main_check["cluster"],
         "share": main_check["share"],
         "bm_prep_ms": prep_ms,
+        "fleet": {k: fleet_check[k] for k in (
+            "batch", "steps", "cluster", "ms", "plain_ms", "bound_ms",
+            "share")},
         "checks": checks,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

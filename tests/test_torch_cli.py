@@ -203,10 +203,13 @@ def test_every_option_is_parsed_like_jax(capsys):
      "96000"],
 ])
 def test_hls_commands_parse_and_raise(argv, capsys):
-    """HLS is not ported: the commands parse their options and raise,
-    naming the ROADMAP item; a wrong command line fails as any other."""
-    with pytest.raises(NotImplementedError, match="HLS and video"):
-        _run(t_cli, argv, capsys)
+    """The hls commands parse their options and then run as the JAX
+    package's do: on input that does not exist both report the same error
+    and exit code (nothing raises); a wrong command line fails as any
+    other."""
+    j, t = _both(argv, capsys)
+    assert j[0] == 1 and j[2]
+    _assert_same(j, t)
     assert TParams.hls_bit_rate == int(argv[argv.index("--bit-rate") + 1])
     rc, _, err = _run(t_cli, [argv[0], "only-one"], capsys)
     assert rc == 1 and "error parsing arguments" in err
@@ -416,3 +419,20 @@ def test_try_speed_matches_jax(files, capsys):
     assert len(calls) == 2 and all(b > 0 for b, _ in calls)
     no_speed = _run(t_cli, ["cmp", files["fast"], MSG], capsys)
     assert no_speed[0] == 1 and "-SPEED" not in no_speed[1]
+
+
+def test_ber_row_carrier_is_the_ber_tools_carrier(tmp_path):
+    """audiowmark_tpu_torch.ber_row runs docs/BER.md's tonal speed-mp3 row
+    on the port: its carrier is tools/ber_report.py's, byte for byte."""
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    try:
+        import ber_report
+    finally:
+        sys.path.pop(0)
+    from audiowmark_tpu_torch import ber_row
+    a, b = str(tmp_path / "tool.wav"), str(tmp_path / "port.wav")
+    ber_report.gen_tonal(a, 3)
+    ber_row.gen_tonal(b, 3)
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
+    assert ber_row.TRANSFORM == ("0.9764", 128)

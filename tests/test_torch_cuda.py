@@ -1,7 +1,8 @@
 """The port on a CUDA card: kernel K1 vs its plain version, and the slice,
 the streaming resampler, the 48 kHz streaming add, the staged search and
 a speed scan on the card vs the port on the CPU; the command line on the
-card.
+card; the fleet API (watermark_batch, detect_batch) card vs CPU and K1 at
+its batch of 256 rows.
 
 Every test here needs the card and skips without one.  This file imports
 no jax and nothing of the JAX package, so it runs where jax is absent,
@@ -272,3 +273,54 @@ def test_command_line_on_card(tmp_path, capsys):
     assert "\nspeed 1.010000\n" in "\n" + out
     assert any(line.startswith("pattern") and "-SPEED" in line
                and line.split()[2] == MSG for line in out.splitlines())
+
+
+def test_kernel_matches_plain_at_the_fleet_batch():
+    """B = 256 rows at 143 steps, the batch detect_batch gives K1 for 16
+    streams with top_k = 8, on branch metrics made on the card from seeded
+    soft bits as ViterbiDecoder.forward makes them (A tables on the first
+    half, B tables on the second)."""
+    from audiowmark_tpu_torch.codec import convcode
+    dec = convcode.viterbi_decoder("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(256)
+    soft = torch.rand((128, 143 * 6), generator=gen, device="cuda")
+    bm = torch.cat([convcode.batch_branch_metrics(soft, dec.table(bt))
+                    for bt in (convcode.ConvBlockType.a,
+                               convcode.ConvBlockType.b)]).contiguous()
+    assert bm.shape == (256, 143, viterbi.STATE_COUNT)
+    assert acs_equal(viterbi.viterbi_acs(bm), viterbi.viterbi_acs_plain(bm))
+
+
+def test_detect_batch_on_card_matches_cpu():
+    """The fleet API at the mini geometry (short-12 payload, 10 sync frames
+    per bit, T = 1200, 4 streams, top_k = 4), card vs CPU: the marked
+    batches within 1e-5, and on one marked batch positions, block types,
+    bits and eligibility exact in every slot, qualities rtol 2e-4 atol
+    2e-5; the card's detect_batch launches K1 once."""
+    from audiowmark_tpu_torch import tables
+    from audiowmark_tpu_torch.parallel.batch import (detect_batch,
+                                                     watermark_batch)
+    Params.payload_short = 12
+    Params.payload_size = 12
+    Params.sync_frames_per_bit = 10
+    tables._cache.clear()
+    try:
+        rng = np.random.RandomState(7)
+        audio = (rng.rand(4, 1200 * 1024, 2).astype(np.float32) - 0.5) * 0.6
+        marked = watermark_batch(Key(), audio, "abc", device="cpu")
+        on_card = watermark_batch(Key(), audio, "abc")
+        np.testing.assert_allclose(on_card, marked, atol=1e-5, rtol=0)
+        want = detect_batch(Key(), marked, top_k=4, device="cpu")
+        before = viterbi.LAUNCHES
+        got = detect_batch(Key(), marked, top_k=4)
+        assert viterbi.LAUNCHES == before + 1
+    finally:
+        tables._cache.clear()
+    for name in ("positions", "block_is_a", "bits", "eligible"):
+        assert np.array_equal(got[name], want[name]), name
+    np.testing.assert_allclose(got["qualities"], want["qualities"],
+                               rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(got["errors"], want["errors"], atol=1e-4)
+    for b in range(4):
+        best = int(np.argmax(got["qualities"][b]))
+        assert abs(int(got["positions"][b][best]) - 250 * 1024) < 512

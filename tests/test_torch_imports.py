@@ -203,3 +203,87 @@ def test_wav_written_by_one_package_loads_bit_equal_in_the_other(
         assert np.array_equal(got.samples, want.samples)
         assert (got.n_channels, got.sample_rate, got.bit_depth) == \
             (want.n_channels, want.sample_rate, want.bit_depth)
+
+
+def _fake_ts(path, n_packets=4):
+    """A minimal TS file: 188-byte packets that start with 'G'."""
+    rng = np.random.RandomState(7)
+    data = rng.randint(0, 256, size=n_packets * 188).astype(np.uint8)
+    data[::188] = ord("G")
+    with open(path, "wb") as f:
+        f.write(data.tobytes())
+
+
+@pytest.mark.parametrize("payload_len", [5, 176, 3000])
+def test_mpegts_copy_writes_and_reads_what_the_original_does(tmp_path,
+                                                             payload_len):
+    """hls/mpegts.py is a copy: the same entries give the same bytes from
+    either writer, and each reader reads the other's file."""
+    from audiowmark_tpu.hls import mpegts as j_ts
+    from audiowmark_tpu_torch.hls import mpegts as t_ts
+    src = str(tmp_path / "in.ts")
+    _fake_ts(src)
+    payload = bytes(np.random.RandomState(payload_len).randint(
+        0, 256, size=payload_len).astype(np.uint8))
+    var_map = {"size": "1024", "start_pos": "99", "channel_layout": "stereo"}
+    outs = []
+    for mod in (j_ts, t_ts):
+        writer = mod.TSWriter()
+        writer.append_data("full.flac", payload)
+        writer.append_vars("vars", var_map)
+        out = str(tmp_path / (mod.__name__ + ".ts"))
+        writer.process(src, out)
+        outs.append(out)
+    with open(outs[0], "rb") as a, open(outs[1], "rb") as b:
+        assert a.read() == b.read()
+    for mod, path in ((j_ts, outs[1]), (t_ts, outs[0])):
+        reader = mod.TSReader()
+        reader.load(path)
+        assert [e.filename for e in reader.entries()] == ["full.flac", "vars"]
+        assert reader.find("full.flac").data == payload
+        assert reader.parse_vars("vars") == var_map
+        assert reader.find("nothere") is None
+    assert (t_ts.PACKET_SIZE, t_ts.HEADER_SIZE) == \
+        (j_ts.PACKET_SIZE, j_ts.HEADER_SIZE)
+
+
+def test_prof_copy_reports_what_the_original_does():
+    """utils/prof.py is a copy: the same phases, entered the same way,
+    give the same names, counts and order; off by default."""
+    from audiowmark_tpu.utils import prof as j_prof
+    from audiowmark_tpu_torch.utils import prof as t_prof
+    reports = []
+    for mod in (j_prof, t_prof):
+        assert mod.enabled is False
+        mod.reset()
+        with mod.phase("off"):
+            pass
+        mod.enabled = True
+        try:
+            for name, n in (("get.load", 3), ("get.search_clip", 1)):
+                for _ in range(n):
+                    with mod.phase(name):
+                        sum(range(20000 * n))
+        finally:
+            mod.enabled = False
+        reports.append(mod.report())
+        mod.reset()
+    assert [(k, v["n"]) for k, v in reports[0].items()] == \
+        [(k, v["n"]) for k, v in reports[1].items()]
+    assert set(reports[1]) == {"get.load", "get.search_clip"}
+    assert all(v["s"] >= 0 for v in reports[1].values())
+
+
+def test_ast_walk_covers_the_new_modules():
+    rel = {os.path.relpath(p, REPO) for p in _sources()}
+    for want in ("audiowmark_tpu_torch/parallel/batch.py",
+                 "audiowmark_tpu_torch/parallel/mesh.py",
+                 "audiowmark_tpu_torch/hls/hls.py",
+                 "audiowmark_tpu_torch/hls/mpegts.py",
+                 "audiowmark_tpu_torch/video.py",
+                 "audiowmark_tpu_torch/ops/detect_fused.py",
+                 "audiowmark_tpu_torch/utils/prof.py"):
+        assert want in rel, want
+    with open(os.path.join(REPO, "videowmark-torch")) as f:
+        script = f.read()
+    assert "audiowmark_tpu.video" not in script and "jax" not in script.lower()

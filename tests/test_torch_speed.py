@@ -249,6 +249,37 @@ def test_speed_scan_of_a_tiny_clip_is_zero():
         == [(0.0, 0.9), (0.0, 1.1 * 0.9)]
 
 
+@pytest.mark.parametrize("n_dev,n_centers", [(2, 5), (4, 5), (8, 1),
+                                             (3, 12)])
+def test_speed_scan_over_devices_equals_one_device(monkeypatch, n_dev,
+                                                   n_centers):
+    """The centres split over logical devices (every one the CPU), shares
+    of unequal size and more devices than centres included: the grid of
+    one device, bit for bit (tests/test_speed_multichip.py's cases)."""
+    _, t_bits = _sync_bits()
+    clip = _clip(5, 4, 0.3)
+    centers = [0.9 * 1.0007 ** (11 * c) for c in range(n_centers)]
+    rels = [1.0007 ** p for p in range(-2, 3)]
+    assert t_ops.scan_device_count("cpu") == 1
+    single = t_ops.speed_scan(clip, 2, centers, 3.0, rels, t_bits,
+                              device="cpu")
+    seen = []
+    monkeypatch.setattr(t_ops, "scan_device_count",
+                        lambda device=None: seen.append(device) or n_dev)
+    sharded = t_ops.speed_scan(clip, 2, centers, 3.0, rels, t_bits,
+                               device="cpu")
+    assert seen == ["cpu"] and sharded == single
+    assert max(q for row in single for q, _ in row) > 0
+
+
+def test_scan_device_count_follows_the_multichip_switch(monkeypatch):
+    monkeypatch.setenv("AUDIOWMARK_MULTICHIP", "0")
+    assert t_ops.scan_device_count("cpu") == 1
+    monkeypatch.setenv("AUDIOWMARK_MULTICHIP", "1")
+    assert t_ops.scan_device_count("cpu") == 1
+    assert t_ops.spread("cpu", 3) == [torch.device("cpu")] * 3
+
+
 def test_speed_scan_needs_a_card_unless_told():
     _, t_bits = _sync_bits()
     if torch.cuda.is_available():
