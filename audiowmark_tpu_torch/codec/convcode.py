@@ -89,15 +89,22 @@ def _state_output_table(block_type: ConvBlockType) -> np.ndarray:
     return np.stack(cols, axis=1)
 
 
-def batch_branch_metrics(codeds: torch.Tensor,
-                         s_table: torch.Tensor) -> torch.Tensor:
+def batch_branch_metrics(codeds: torch.Tensor, s_table: torch.Tensor,
+                         out: torch.Tensor = None) -> torch.Tensor:
     """bm (B, steps, STATE_COUNT) for coded rows (B, steps*rate) against
-    one parity table (STATE_COUNT, rate), via one matmul."""
+    one parity table (STATE_COUNT, rate), via one matmul, written into
+    `out` where it is given (a contiguous tensor of that shape).  In place,
+    -2·M + c_sq + s_sum rounds as c_sq - 2·M + s_sum does: the factor 2 is
+    exact and a - b is a + (-b)."""
     rate = s_table.shape[1]
     c = codeds.reshape(codeds.shape[0], -1, rate)
     c_sq = torch.sum(c * c, dim=2, keepdim=True)              # (B, steps, 1)
     s_sum = torch.sum(s_table, dim=1)[None, None, :]          # (1, 1, states)
-    return c_sq - 2.0 * torch.matmul(c, s_table.T) + s_sum
+    if out is None:
+        out = torch.empty((c.shape[0], c.shape[1], s_table.shape[0]),
+                          dtype=c.dtype, device=c.device)
+    torch.matmul(c, s_table.T, out=out)
+    return out.mul_(-2.0).add_(c_sq).add_(s_sum)
 
 
 class ViterbiDecoder(nn.Module):
@@ -118,12 +125,18 @@ class ViterbiDecoder(nn.Module):
         """groups of (block type, coded rows (B_i, n_i) on this device) with
         equal step counts -> (bits (sum B_i, steps) int32, errors
         (sum B_i,) f32), rows in group order, through ONE trellis."""
-        bms = [batch_branch_metrics(c, self.table(bt)) for bt, c in groups]
-        n_coded = torch.cat([
-            torch.full((c.shape[0],), float(c.shape[1]),
-                       dtype=torch.float32, device=c.device)
-            for _, c in groups])
-        _, metrics, bits = viterbi_acs(torch.cat(bms, dim=0).contiguous())
+        _, c0 = groups[0]
+        steps = c0.shape[1] // self.table(groups[0][0]).shape[1]
+        bm = torch.empty((sum(c.shape[0] for _, c in groups), steps,
+                          STATE_COUNT), dtype=torch.float32, device=c0.device)
+        n_coded = torch.empty(bm.shape[0], dtype=torch.float32,
+                              device=c0.device)
+        k = 0
+        for bt, c in groups:
+            batch_branch_metrics(c, self.table(bt), out=bm[k:k + c.shape[0]])
+            n_coded[k:k + c.shape[0]] = float(c.shape[1])
+            k += c.shape[0]
+        _, metrics, bits = viterbi_acs(bm)
         return bits, metrics[:, 0] / n_coded
 
 

@@ -91,19 +91,43 @@ get_watermark as `cmp` — on deterministic 16-bit stereo noise at 44.1 kHz
      and MPEG-TS (hls_without_codec below);
  19. profile: AUDIOWMARK_PROFILE=<dir> python3 -m audiowmark_tpu_torch cmp
      of the 200 s marked file as a subprocess: exit 0, one Chrome trace in
-     <dir> that parses as JSON and holds a viterbi_acs kernel event.
+     <dir> that parses as JSON and holds a viterbi_acs kernel event;
+ 20. modes: the command line's modes at production geometry on the 200 s
+     fixture (MODES below): --hard, --linear (and its file decoded with mix
+     on), --short 12/16/20, --frames-per-bit 4, two keys in one get, a
+     double watermark, a wrong key, 24-bit input and cut-start, each with
+     the reference's match counts (200 s -> 5, --frames-per-bit 4 -> 6,
+     cut-start of 882300 frames -> 3, wrong key and mix-decoded linear ->
+     0, every --short pattern the payload, both messages under their keys)
+     and its get's first and warm wall seconds; K1 against its plain
+     version, bit for bit, on the very branch metrics each mode gave it, at
+     each (B, steps) shape (71 / 76 / 80 steps for the short payloads, the
+     hard decisions' ties, 4 frames per bit); then at the reduced geometry
+     of tests/test_torch_modes.py (80 s of RandomState(7) noise) the card's
+     report of every mode against the port's CPU report of the same file:
+     exit codes, pattern times, bits, types and match counts equal,
+     qualities and errors within 0.002;
+ 21. ber: the ten codec-free rows of docs/BER.md's matrix (ber_row.py, 2
+     seeds): noise with none, resample:48000, trunc:15 and clip:10, the
+     five other carriers with none, noise@200s with none; every FLOOR row
+     BER 0 and FER 0, each row beside docs/BER.md's numbers; the codec rows
+     are listed with why they do not run here.
 
-Every phase 9-19 prints one line.  Each path (the main path of phases
-5-7; the 32 kHz add and get, the 48 kHz get, the streaming add and its
-get, the --test-no-sync get, the 32-min add and get, the speed gets, the
-fleet calls, the gets of phase 17, the HLS get) has K1's launch count reset
-to 0 just before it and read just after: each must be above 0.  The kernels line gives their sum as `launches` and each
-of them in `launches_by_path`.
+Phase 16 also runs detect_batch with the branch metrics in one buffer
+(ViterbiDecoder.forward) and in their former list and torch.cat: the
+metrics equal bit for bit, and the peak memory of each.
 
-`python3 chip_smoke.py --new-only` makes the fixtures that phases 16-19
-read (the 200 s, 60 s and 32-min marked files) without the checks of
-phases 3-15 and runs phases 1, 2 and 16-19 alone; it prints no kernels
-line.
+Every phase 9-21 prints one line (20 and 21 one more per mode and row).
+Each path (the main path of phases 5-7; the 32 kHz add and get, the 48 kHz
+get, the streaming add and its get, the --test-no-sync get, the 32-min add
+and get, the speed gets, the fleet calls, the gets of phase 17, the HLS
+get, the modes' adds and gets at production geometry, the BER rows) has
+K1's launch count reset to 0 just before it and read just after: each must
+be above 0.  The kernels line gives their sum as `launches` and each of
+them in `launches_by_path`.
+
+`python3 chip_smoke.py --new-only` runs phases 1, 2, 20 and 21 alone; it
+prints no kernels line.
 
 Any failed check raises: the script exits non-zero and prints no result.
 Without a CUDA device it exits 1 before any work.  On success the line
@@ -219,9 +243,10 @@ def k1_check_bm(bm, nan_row=False):
 
 def bm_prep_ms(batch, steps):
     """CUDA-event ms of preparing K1's input at (batch, steps) as
-    ViterbiDecoder.forward does (codec/convcode.py:121-126): one
-    batch_branch_metrics per block type (a, b and ab rows of seeded soft
-    bits) and their torch.cat."""
+    ViterbiDecoder.forward does (codec/convcode.py): one preallocated
+    (batch, steps, STATE_COUNT) buffer, and batch_branch_metrics of each
+    block type's rows (a, b and ab rows of seeded soft bits) written into
+    its slice."""
     from audiowmark_tpu_torch.codec import convcode
     from audiowmark_tpu_torch.ops import viterbi
     dec = convcode.viterbi_decoder("cuda")
@@ -235,8 +260,13 @@ def bm_prep_ms(batch, steps):
                 rng.rand(n, steps * rate).astype(np.float32)).cuda()))
 
     def prep():
-        return torch.cat([convcode.batch_branch_metrics(c, dec.table(bt))
-                          for bt, c in groups], dim=0).contiguous()
+        bm = torch.empty((batch, steps, viterbi.STATE_COUNT), device="cuda")
+        k = 0
+        for bt, c in groups:
+            convcode.batch_branch_metrics(c, dec.table(bt),
+                                          out=bm[k:k + c.shape[0]])
+            k += c.shape[0]
+        return bm
 
     check(prep().shape == (batch, steps, viterbi.STATE_COUNT),
           "branch metrics of the wrong shape")
@@ -657,6 +687,26 @@ def phase_cli(d, smi):
 FLEET_STREAMS, FLEET_SECONDS, FLEET_TOP_K = 16, 60, 8
 
 
+def forward_cat(self, groups):
+    """ViterbiDecoder.forward as it was before its branch metrics went into
+    one buffer: c_sq - 2·c·Sᵀ + s_sum per group in a list, then their
+    torch.cat (phase 16 compares the two)."""
+    from audiowmark_tpu_torch.codec import convcode
+    bms = []
+    for bt, c in groups:
+        table = self.table(bt)
+        c3 = c.reshape(c.shape[0], -1, table.shape[1])
+        bms.append(torch.sum(c3 * c3, dim=2, keepdim=True)
+                   - 2.0 * torch.matmul(c3, table.T)
+                   + torch.sum(table, dim=1)[None, None, :])
+    n_coded = torch.cat([
+        torch.full((c.shape[0],), float(c.shape[1]), dtype=torch.float32,
+                   device=c.device) for _, c in groups])
+    _, metrics, bits = convcode.viterbi_acs(torch.cat(bms, dim=0)
+                                            .contiguous())
+    return bits, metrics[:, 0] / n_coded
+
+
 def phase_fleet(key, smi):
     """16. watermark_batch then detect_batch on 16 x 60 s.  Returns K1's
     launches over the fleet calls, K1's check on the branch metrics that
@@ -734,6 +784,27 @@ def phase_fleet(key, smi):
     # K1 on the very branch metrics detect_batch gave it
     k1 = k1_check_bm(kept.pop())
 
+    # the branch metrics in one buffer (ViterbiDecoder.forward) vs the
+    # former list and torch.cat: the same metrics bit for bit, and the
+    # peak memory of a detect_batch above what was allocated before it
+    one_buffer, peak, metrics = convcode.ViterbiDecoder.forward, {}, {}
+    for name, forward in (("cat", forward_cat), ("one_buffer", one_buffer)):
+        convcode.ViterbiDecoder.forward = forward
+        try:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            batches_of(lambda: fleet.detect_batch(key, marked, top_k=K),
+                       kept)
+            torch.cuda.synchronize()
+            peak[name] = torch.cuda.max_memory_allocated() - base
+        finally:
+            convcode.ViterbiDecoder.forward = one_buffer
+        metrics[name] = kept.pop()
+    check(torch.equal(metrics["cat"], metrics["one_buffer"]),
+          "the branch metrics in one buffer differ from their torch.cat")
+    del metrics
+
     # where a third detect_batch spends its time: each stage synchronised
     spent = {"refine": 0.0, "extract": 0.0, "viterbi": 0.0}
     refine, extract = detect_fused.refine_grid_scores, detect_fused.block_raw
@@ -766,7 +837,9 @@ def phase_fleet(key, smi):
           instrumented_detect_s=whole,
           refine_share=spent["refine"] / whole,
           extract_share=spent["extract"] / whole,
-          viterbi_share=spent["viterbi"] / whole, card=smi, **times)
+          viterbi_share=spent["viterbi"] / whole,
+          peak_bytes_cat=peak["cat"], peak_bytes_one_buffer=peak["one_buffer"],
+          card=smi, **times)
     return launches, k1, marked
 
 
@@ -1081,6 +1154,284 @@ def phase_profile(d, smi):
           viterbi_acs_us=[e.get("dur") for e in k1], card=smi)
 
 
+MSG2 = "0123456789abcdef0123456789abcdef"
+SHORT = {12: "abc", 16: "abcd", 20: "abcde"}
+# marked files of phase 20: name -> (input, [(test key or None, message,
+# settings)] of its adds, in turn)
+MODE_ADDS = {
+    "default": ("n", [(None, MSG, {})]),
+    "linear": ("n", [(None, MSG, dict(mix=False))]),
+    "fpb4": ("n", [(None, MSG, dict(frames_per_bit=4))]),
+    "24bit": ("n24", [(None, MSG, {})]),
+    "double": ("n", [(None, MSG, {}), (9, MSG2, {})]),
+}
+MODE_ADDS.update({"short%d" % k: ("n", [(None, m, dict(
+    payload_size=k, payload_short=True))]) for k, m in SHORT.items()})
+# phase 20's modes: name -> (marked file, cut-start frames, [(test keys,
+# message ("" for a get), settings, match count on 200 s at production
+# geometry: the reference's)] of its gets).  The counts are those of
+# tests/test_modes.py (--linear 5 and 0 with mix, --frames-per-bit 4 6),
+# tests/test_end_to_end.py (cut-start 882300 frames 3) and the 200 s file's
+# 5; None: no count (a get, or --short, where every pattern must be the
+# payload, tests/test_short_payload_e2e.py:33-40)
+MODES = {
+    "hard": ("default", 0, [([None], MSG, dict(hard=True), 5)]),
+    "linear": ("linear", 0, [([None], MSG, dict(mix=False), 5),
+                             ([None], MSG, {}, 0)]),
+    "frames_per_bit_4": ("fpb4", 0, [([None], MSG, dict(frames_per_bit=4),
+                                      6)]),
+    "two_keys_one_get": ("double", 0, [([None, 9], "", {}, None)]),
+    "double_watermark": ("double", 0, [([None], MSG, {}, 5),
+                                       ([9], MSG2, {}, 5)]),
+    "wrong_key": ("default", 0, [([5], MSG, {}, 0)]),
+    "24bit": ("24bit", 0, [([None], MSG, {}, 5)]),
+    "cut_start": ("default", 882300, [([None], MSG, {}, 3)]),
+}
+MODES.update({"short_%d" % k: ("short%d" % k, 0, [([None], m, dict(
+    payload_size=k, payload_short=True), None)]) for k, m in SHORT.items()})
+REDUCED = dict(sync_frames_per_bit=30, frames_per_bit=1)
+
+
+def mode_key(test_key):
+    from audiowmark_tpu_torch.crypto.keys import Key
+    key = Key()
+    if test_key is not None:
+        key.set_test_key(test_key)
+    return key
+
+
+def make_mode_files(port, d, inputs, tag, base):
+    """Every marked file of MODE_ADDS from `inputs` ({"n": 16-bit, "n24":
+    24-bit}) under `base` settings on the card; {name: path}, and the add
+    walls."""
+    paths, walls = {}, {}
+    for name, (src, adds) in MODE_ADDS.items():
+        path = inputs[src]
+        t0 = time.perf_counter()
+        for i, (test_key, msg, settings) in enumerate(adds):
+            out = os.path.join(d, "%s_%s_%d.wav" % (tag, name, i))
+            set_params(**{**base, **settings})
+            with contextlib.redirect_stderr(io.StringIO()):
+                rc = port.add_watermark(mode_key(test_key), path, out, msg)
+            check(rc == 0, "%s add of %s" % (tag, name))
+            path = out
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        paths[name] = path
+    set_params()
+    return paths, walls
+
+
+def mode_gets(port, path, gets, base, device=None):
+    """[(rc, stdout)] of the mode's gets of `path` under `base` settings."""
+    reports = []
+    for test_keys, msg, settings, _ in gets:
+        set_params(**{**base, **settings})
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = port.get_watermark([mode_key(k) for k in test_keys], path,
+                                    msg, device)
+        if device is None:
+            torch.cuda.synchronize()
+        reports.append((rc, out.getvalue()))
+    set_params()
+    return reports
+
+
+def cut_file(path, frames, d, tag):
+    from audiowmark_tpu_torch.cli import cut_start
+    if not frames:
+        return path
+    out = os.path.join(d, "%s_cut.wav" % tag)
+    check(cut_start(path, out, str(frames)) == 0, "cut-start of " + path)
+    return out
+
+
+def report_fields(text):
+    """(exact fields, (quality, error)) of each pattern line, and the
+    match_count and key lines."""
+    exact, floats = [], []
+    for line in text.splitlines():
+        f = line.split()
+        if f and f[0] == "pattern":
+            exact.append((f[1], f[2]) + tuple(f[5:]))
+            floats.append((float(f[3]), float(f[4])))
+    return exact, floats, [line for line in text.splitlines()
+                           if line.startswith(("match_count", "key "))]
+
+
+def same_report(got, want):
+    """The slice test's rule: exit codes, pattern times, bits and types,
+    match_count and key lines equal; qualities and errors within 0.002.
+    Returns the largest float difference, or None where the reports
+    differ."""
+    worst = 0.0
+    for (g_rc, g), (w_rc, w) in zip(got, want):
+        ge, gf, gc = report_fields(g)
+        we, wf, wc = report_fields(w)
+        if g_rc != w_rc or ge != we or gc != wc:
+            return None
+        worst = max([worst] + [abs(a - b) for x, y in zip(gf, wf)
+                               for a, b in zip(x, y)])
+    return worst if worst <= 0.002 else None
+
+
+def check_mode(name, reports, gets):
+    """What the reference's tests hold of the mode, on production
+    geometry; returns the match counts."""
+    counts = []
+    for (rc, text), (test_keys, msg, settings, expect) in zip(reports, gets):
+        lines = [line.split() for line in text.splitlines()
+                 if line.startswith("match_count")]
+        counts.append(int(lines[0][1]) if lines else None)
+        if expect is not None:
+            check(counts[-1] == expect and rc == (0 if expect else 1),
+                  "%s: expected match_count %d, got exit %d:\n%s"
+                  % (name, expect, rc, text))
+        if "payload_short" in settings:
+            patterns = [line for line in text.splitlines()
+                        if line.startswith("pattern")]
+            check(rc == 0 and patterns and counts[-1] >= 1
+                  and all(msg in p for p in patterns),
+                  "%s: a pattern that is not %s:\n%s" % (name, msg, text))
+        if not msg:
+            check(rc == 0 and "key test-key-9" in text and MSG in text
+                  and MSG2 in text, "%s: both messages under their keys "
+                  "not found:\n%s" % (name, text))
+    return counts
+
+
+def phase_modes(port, d, smi, checks):
+    """20. the command line's modes on the card: production geometry on
+    the 200 s file with the reference's match counts, K1 at the shapes
+    they give it, and at the reduced geometry the card's reports against
+    the port's CPU reports of the same files.  Returns K1's launches over
+    the card's adds and gets."""
+    from audiowmark_tpu_torch.io.wavdata import WavData
+    t_phase = time.perf_counter()
+    n200 = os.path.join(d, "n200.wav")
+    n24 = os.path.join(d, "mode_n24.wav")
+    WavData(WavData.load(n200).samples, 2, 44100, 24).save(n24)
+    from audiowmark_tpu_torch.codec import convcode
+    seen = {}       # mode -> {(B, steps): branch metrics K1 got on the card}
+    current = [None]
+    acs = convcode.viterbi_acs
+
+    def recording(bm):
+        seen.setdefault(current[0], {}).setdefault(tuple(bm.shape[:2]), bm)
+        return acs(bm)
+
+    def production():
+        files, add_s = make_mode_files(port, d, {"n": n200, "n24": n24},
+                                       "prod", {})
+        check(WavData.load(files["24bit"]).bit_depth == 24,
+              "the 24-bit add wrote another bit depth")
+        fields = {}
+        for name, (marked, cut, gets) in MODES.items():
+            current[0] = name
+            path = cut_file(files[marked], cut, d, name)
+            first, first_s = timed(lambda: mode_gets(port, path, gets, {}))
+            warm, warm_s = timed(lambda: mode_gets(port, path, gets, {}))
+            check(warm == first, "%s: the warm get printed another report"
+                  % name)
+            fields[name] = dict(match_counts=check_mode(name, first, gets),
+                                add_s=add_s[marked], first_s=first_s,
+                                warm_s=warm_s)
+        return fields
+
+    convcode.viterbi_acs = recording
+    try:
+        fields, launches = launches_of("the modes", production)
+    finally:
+        convcode.viterbi_acs = acs
+
+    # K1 against its plain version on the very metrics each mode gave it,
+    # once per mode and shape
+    shapes = {}
+    for name in MODES:
+        bms = seen.pop(name, {})
+        check(bms, "%s never reached K1 on the card" % name)
+        shapes[name] = sorted(bms)
+        k1 = [dict(k1_check_bm(bms[shape]), path="modes/" + name)
+              for shape in shapes[name]]
+        checks.extend(k1)
+        del bms
+        phase("mode", mode=name, k1_shapes=shapes[name], k1=[{
+            k: c[k] for k in ("batch", "steps", "ms", "plain_ms", "bound_ms",
+                              "share", "cluster")} for c in k1],
+            card=smi, **fields[name])
+    short_steps = [sorted({s[1] for s in shapes["short_%d" % k]})
+                   for k in SHORT]
+    check(short_steps == [[71], [76], [80]],
+          "the short payloads gave K1 %s steps" % short_steps)
+
+    # the reduced geometry: the card's report vs the port's CPU report of
+    # the same (card-marked) file
+    rng = np.random.RandomState(7)
+    x = ((rng.rand(80 * 44100 * 2) * 2 - 1) * 0.5).astype(np.float32)
+    inputs = {"n": os.path.join(d, "mode_r.wav"),
+              "n24": os.path.join(d, "mode_r24.wav")}
+    WavData(x, 2, 44100, 16).save(inputs["n"])
+    WavData(x, 2, 44100, 24).save(inputs["n24"])
+    files, _ = make_mode_files(port, d, inputs, "reduced", REDUCED)
+    apart, cpu_s = {}, 0.0
+    for name, (marked, cut, gets) in MODES.items():
+        path = cut_file(files[marked], cut, d, "reduced_" + name)
+        card = mode_gets(port, path, gets, REDUCED)
+        cpu, s = timed(lambda: mode_gets(port, path, gets, REDUCED, "cpu"))
+        cpu_s += s
+        apart[name] = same_report(card, cpu)
+        check(apart[name] is not None, "%s: the card's report differs from "
+              "the CPU's:\n%s\n%s" % (name, card, cpu))
+    phase("modes", modes=len(MODES), k1_launches=launches,
+          k1_shapes=sorted({s for v in shapes.values() for s in v}),
+          reduced_card_vs_cpu_max_float=apart, reduced_cpu_get_s=cpu_s,
+          seconds=time.perf_counter() - t_phase, card=smi)
+    return launches
+
+
+def phase_ber(d, smi):
+    """21. the codec-free rows of docs/BER.md's matrix on the card (2
+    seeds): every FLOOR row BER 0 and FER 0, the others beside
+    docs/BER.md's numbers; the rows that need a codec are listed with why
+    they do not run here.  Returns K1's launches over the rows."""
+    from audiowmark_tpu_torch import ber_row
+    t_phase = time.perf_counter()
+    rows = [r for r in ber_row.ROWS if not ber_row.codec_of(r[2])]
+    skipped = {}
+    for r in ber_row.ROWS:
+        if ber_row.codec_of(r[2]):
+            lib = ber_row.codec_of(r[2])
+            skipped.setdefault(
+                "%s %s" % (lib, "does not load here"
+                           if ber_row.missing_codec(r[2])
+                           else "loads, codec rows run on the CPU "
+                           "(docs/BER_torch.md)"),
+                []).append(ber_row.label(r[0], r[1]) + " " + r[2])
+    ref = ber_row.reference_rows()
+    carriers = {("noise", 60): os.path.join(d, "n60.wav"),
+                ("noise", 200): os.path.join(d, "n200.wav")}
+
+    def row(r):
+        e, n, fe, fn = r["counts"]
+        print("phase %-10s %s" % ("ber_row", json.dumps(dict(
+            carrier=r["label"], transform=r["transform"], kind=r["kind"],
+            ber="%d/%d" % (e, n), fer="%d/%d" % (fe, fn),
+            docs_ber_md=ref.get((r["label"], r["transform"],
+                                 r["strength"])),
+            seconds=r["seconds"]), sort_keys=True)), flush=True)
+
+    results, launches = launches_of("the BER rows", lambda: ber_row.run_rows(
+        rows, seeds=2, carriers=carriers, on_row=row))
+    bad, _ = ber_row.verdict(results)
+    check(not bad, "FLOOR rows with errors on the card: %s" % bad)
+    phase("ber", rows=len(results), floor_rows=sum(
+        r["kind"] == "floor" for r in results), floor_errors=0,
+        skipped=skipped, k1_launches=launches,
+        seconds=time.perf_counter() - t_phase, card=smi)
+    return launches
+
+
 def main_path(port, key, d, n200, wm200, smi):
     """5.-7. 200 s add and cmp (cold, warm), the SNR, 60 s and 30 s."""
     from audiowmark_tpu_torch.io.wavdata import WavData
@@ -1146,18 +1497,6 @@ def earlier_phases(port, key, d, smi, checks):
     phase_cli(d, smi)
 
     return paths, main_check, prep_ms
-
-
-def fixtures_for_new(port, key, d):
-    """What phases 16-19 read of the earlier phases' files: the 200 s and
-    60 s marked files and the 32-min marked file."""
-    from audiowmark_tpu_torch.fixtures import long_noise
-    for src, dst in (("n200.wav", "wm.wav"), ("n60.wav", "wm60.wav")):
-        add(port, key, os.path.join(d, src), os.path.join(d, dst))
-    n = os.path.join(d, "nlong.wav")
-    long_noise(1, n, LONG_MINUTES * 60, 44100)
-    add(port, key, n, os.path.join(d, "wmlong.wav"))
-    os.remove(n)
 
 
 def main() -> int:
@@ -1229,20 +1568,22 @@ def main() -> int:
             gen_noise(key, os.path.join(d, "n%d.wav" % secs), secs, 44100)
         phase("fixtures", seconds=time.perf_counter() - t0)
 
-        if new_only:
-            fixtures_for_new(port, key, d)
-            paths = {}
-        else:
+        paths = {}
+        if not new_only:
             paths, main_check, prep_ms = earlier_phases(port, key, d, smi,
                                                         checks)
+            # ---- 16.-19. the fleet API, groups and prefetch, HLS, the
+            # trace ----
+            paths["fleet"], fleet_check, marked = phase_fleet(key, smi)
+            checks.append(fleet_check)
+            paths["group"] = phase_group(port, key, d, marked, smi)
+            del marked
+            paths["hls"] = phase_hls(port, key, d, smi)
+            phase_profile(d, smi)
 
-        # ---- 16.-19. the fleet API, groups and prefetch, HLS, the trace ----
-        paths["fleet"], fleet_check, marked = phase_fleet(key, smi)
-        checks.append(fleet_check)
-        paths["group"] = phase_group(port, key, d, marked, smi)
-        del marked
-        paths["hls"] = phase_hls(port, key, d, smi)
-        phase_profile(d, smi)
+        # ---- 20.-21. the command line's modes, the codec-free BER rows ----
+        paths["modes"] = phase_modes(port, d, smi, checks)
+        paths["ber"] = phase_ber(d, smi)
 
     phase("total", seconds=time.perf_counter() - t_script, card=smi)
     if new_only:

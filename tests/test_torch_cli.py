@@ -423,7 +423,8 @@ def test_try_speed_matches_jax(files, capsys):
 
 def test_ber_row_carrier_is_the_ber_tools_carrier(tmp_path):
     """audiowmark_tpu_torch.ber_row runs docs/BER.md's tonal speed-mp3 row
-    on the port: its carrier is tools/ber_report.py's, byte for byte."""
+    on the port by default: its carrier is tools/ber_report.py's, byte for
+    byte (the other carriers: tests/test_torch_ber_row.py)."""
     sys.path.insert(0, os.path.join(REPO, "tools"))
     try:
         import ber_report
@@ -435,4 +436,4 @@ def test_ber_row_carrier_is_the_ber_tools_carrier(tmp_path):
     ber_row.gen_tonal(b, 3)
     with open(a, "rb") as fa, open(b, "rb") as fb:
         assert fa.read() == fb.read()
-    assert ber_row.TRANSFORM == ("0.9764", 128)
+    assert ber_row.DEFAULT_ROW == ("music", "speed-mp3:0.9764:128")

@@ -324,3 +324,32 @@ def test_detect_batch_on_card_matches_cpu():
     for b in range(4):
         best = int(np.argmax(got["qualities"][b]))
         assert abs(int(got["positions"][b][best]) - 250 * 1024) < 512
+
+
+def test_forward_branch_metrics_in_one_buffer_equal_the_cat():
+    """ViterbiDecoder.forward's branch metrics, written group by group into
+    one buffer on the card, equal bit for bit the torch.cat of
+    c_sq - 2·c·Sᵀ + s_sum per group (cuBLAS with and without out=)."""
+    from audiowmark_tpu_torch.codec import convcode
+    dec = convcode.viterbi_decoder("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    groups = [(bt, torch.rand((n, 143 * len(
+        convcode.get_block_type_generators(bt))), generator=gen,
+        device="cuda")) for bt, n in ((convcode.ConvBlockType.a, 5),
+                                      (convcode.ConvBlockType.b, 3),
+                                      (convcode.ConvBlockType.ab, 4))]
+    want = []
+    for bt, c in groups:
+        table = dec.table(bt)
+        c3 = c.reshape(c.shape[0], -1, table.shape[1])
+        want.append(torch.sum(c3 * c3, dim=2, keepdim=True)
+                    - 2.0 * torch.matmul(c3, table.T)
+                    + torch.sum(table, dim=1)[None, None, :])
+    seen = []
+    acs = convcode.viterbi_acs
+    convcode.viterbi_acs = lambda bm: seen.append(bm.clone()) or acs(bm)
+    try:
+        dec(groups)
+    finally:
+        convcode.viterbi_acs = acs
+    assert len(seen) == 1 and torch.equal(seen[0], torch.cat(want))

@@ -48,12 +48,13 @@ def _cli(cli, *args):
 
 
 def _make_hls(tmp_path, seconds_per_seg, n_segments, rate=44100, ch=2,
-              seed=3):
-    """Master wav + AAC TS segments + playlist."""
+              seed=3, scale=0.125):
+    """Master wav (Gaussian noise of standard deviation `scale`) + AAC TS
+    segments + playlist."""
     seg_frames = (int(seconds_per_seg * rate) // 1024) * 1024
     total = seg_frames * n_segments
     rng = np.random.default_rng(seed)
-    master = (rng.standard_normal(total * ch) * 0.125).astype(np.float32)
+    master = (rng.standard_normal(total * ch) * scale).astype(np.float32)
 
     in_dir = tmp_path / "as0"
     in_dir.mkdir()
@@ -151,6 +152,71 @@ def test_hls_add_passes_the_segments_stream_position(prepared, tmp_path,
                          str(tmp_path / "x.ts"), PAYLOAD, "cpu") == 0
     prev = min(seg_frames, 3 * 44100)
     assert seen == [(seg_frames - prev, "cpu", prev + seg_frames + 3 * 44100)]
+
+
+def test_hls_add_pcm_matches_jax(tmp_path, monkeypatch):
+    """hls-add of the second of two 5 s segments of a loud master (Gaussian
+    noise of standard deviation 0.6, so the limiter works, as on the 200 s
+    test-gen-noise file of chip_smoke.py's phase 18) through each package's
+    command line: the marked PCM on its way to the AAC encoder (after the
+    context the segment drops) is at most 1 LSB from the JAX package's.
+    Against each package's whole-file add of the master followed by 13600
+    more frames of that noise (phase 18 compares its 20 segments with the
+    add of the 200 s file, which runs 13600 frames past them), the segment
+    is further apart (its context ends in zeros where the file goes on), by
+    the same amount in both packages: the gap is the reference's
+    behaviour."""
+    from audiowmark_tpu.crypto.keys import Key as JKey
+    from audiowmark_tpu.hls import hls as j_hls
+    from audiowmark_tpu.models.embedder import add_watermark as j_add
+    from audiowmark_tpu_torch import add_watermark as t_add
+    from audiowmark_tpu_torch.crypto.keys import Key as TKey
+    wav_path, in_dir, names, seg_frames = _make_hls(tmp_path, 5.0, 2,
+                                                    seed=4, scale=0.6)
+    _cli(t_cli, "hls-prepare", str(in_dir), str(tmp_path / "prep"),
+         "out.m3u8", str(wav_path))
+    pcm = {}
+    for side, cli, mod in (("jax", j_cli, j_hls), ("port", t_cli, t_hls)):
+        parts = pcm.setdefault(side, [])
+        write = mod.HLSOutputStream.write_frames
+
+        def record(self, samples, parts=parts, write=write):
+            n = min(self._delete_input_start * self._n_channels,
+                    samples.size)
+            parts.append(np.array(samples[n:], dtype=np.float64))
+            return write(self, samples)
+
+        monkeypatch.setattr(mod.HLSOutputStream, "write_frames", record)
+        _cli(cli, "hls-add", str(tmp_path / "prep" / names[1]),
+             str(tmp_path / ("%s.ts" % side)), PAYLOAD)
+    got, want = (np.concatenate(pcm[s]) for s in ("port", "jax"))
+    assert got.shape == want.shape and got.size > seg_frames * 2
+    lsb = np.abs(np.round((got - want) * 32768))
+    print("hls-add PCM: %d of %d samples 1 LSB from the JAX package's"
+          % (np.count_nonzero(lsb), lsb.size))
+    assert lsb.max() <= 1
+
+    # each package's segment against its own whole-file add
+    master = str(tmp_path / "longer.wav")
+    tail = np.random.default_rng(5).standard_normal(13600 * 2) * 0.6
+    WavData(np.concatenate([WavData.load(str(wav_path)).samples,
+                            tail.astype(np.float32)]), 2, 44100,
+            16).save(master)
+    lead = min(3 * 1024, min(seg_frames, 3 * 44100)) * 2
+    gaps = {}
+    for side, add, key, kw in (("jax", j_add, JKey, {}),
+                               ("port", t_add, TKey, dict(device="cpu"))):
+        whole = str(tmp_path / ("whole_%s.wav" % side))
+        JParams.reset()
+        TParams.reset()
+        assert add(key(), master, whole, PAYLOAD, **kw) == 0
+        ref = WavData.load(whole).samples[seg_frames * 2:seg_frames * 4]
+        seg = np.concatenate(pcm[side])[lead:lead + seg_frames * 2]
+        gap = np.abs(seg - ref) * 32768     # the file is int16, truncated
+        gaps[side] = (float(gap.max()), int(np.count_nonzero(gap > 1)))
+    print("segment vs whole-file add (max LSB, samples > 1 LSB): %s" % gaps)
+    assert abs(gaps["port"][0] - gaps["jax"][0]) <= 1
+    assert abs(gaps["port"][1] - gaps["jax"][1]) <= 1e-3 * seg_frames * 2
 
 
 def test_hls_errors_are_messages_not_tracebacks(prepared, tmp_path, capsys):

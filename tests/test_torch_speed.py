@@ -421,6 +421,38 @@ def test_detect_speed_matches_jax_on_short_scans(fast_file, monkeypatch,
                                 True, "cpu") == []      # under 0.25 s
 
 
+def test_detect_speed_at_48k_matches_jax(fast_file, monkeypatch, capsys,
+                                         tmp_path):
+    """cmp --detect-speed of 20 s of the file at speed 1.01 resampled to
+    48 kHz (short scans as above), through each package's get_watermark.
+    Each package's chunk loader resamples to 44.1 kHz with its own
+    resampler (~1e-6 apart), and the clip is chosen by a hash of those
+    float32 samples, so the packages may scan different clips: either clip
+    is accepted.  Both detect a speed within the reference's 0.05 % of the
+    truth (tests/test_speed.py:43-48) and within 0.05 % of each other."""
+    from audiowmark_tpu.models.getter import get_watermark as j_get
+    from audiowmark_tpu_torch import get_watermark as t_get
+    from audiowmark_tpu_torch.ops.resample import resample
+    _short_scans(monkeypatch, 10)
+    x = TWavData.load(fast_file).samples[:20 * 44100 * 2]
+    path = str(tmp_path / "s48.wav")
+    resample(TWavData(x, 2, 44100, 16), 48000, device="cpu").save(path)
+    _set(detect_speed=True, test_speed=1.01)
+    lines = {}
+    for name, get, key, kw in (("jax", j_get, JKey, {}),
+                               ("port", t_get, TKey, dict(device="cpu"))):
+        capsys.readouterr()
+        get([key()], path, MSG, **kw)
+        lines[name] = [line.split() for line in capsys.readouterr().out
+                       .splitlines() if line.startswith("detect_speed ")]
+    assert len(lines["jax"]) == len(lines["port"]) == 1
+    got, want = float(lines["port"][0][1]), float(lines["jax"][0][1])
+    print("48 kHz detect_speed: port %s, JAX %s" % (lines["port"][0],
+                                                    lines["jax"][0]))
+    assert abs(got - 1.01) / 1.01 < 5e-4 and abs(want - 1.01) / 1.01 < 5e-4
+    assert abs(got - want) / want < 5e-4
+
+
 @pytest.mark.parametrize("option", ["detect_speed", "detect_speed_patient",
                                     "try_speed"])
 def test_get_watermark_with_a_speed_option(fast_file, monkeypatch, capsys,

@@ -186,6 +186,33 @@ def test_conv_decode_soft_mixed_matches_jax():
     assert np.isnan(tout[3][1][-1]) and np.isnan(jout[3][1][-1])
 
 
+def test_forward_branch_metrics_in_one_buffer_equal_the_cat(monkeypatch):
+    """ViterbiDecoder.forward writes each group's branch metrics into one
+    preallocated (sum B_i, steps, STATE_COUNT) tensor; that tensor equals,
+    bit for bit, the torch.cat of c_sq - 2·c·Sᵀ + s_sum per group."""
+    rng = np.random.RandomState(5)
+    groups = [(bt, torch.from_numpy(rng.rand(n, 30 * len(
+        tconv.get_block_type_generators(bt))).astype(np.float32)))
+        for bt, n in ((tconv.ConvBlockType.a, 3), (tconv.ConvBlockType.b, 2),
+                      (tconv.ConvBlockType.ab, 2))]
+    dec = tconv.viterbi_decoder("cpu")
+    want = []
+    for bt, c in groups:
+        table = dec.table(bt)
+        c3 = c.reshape(c.shape[0], -1, table.shape[1])
+        want.append(torch.sum(c3 * c3, dim=2, keepdim=True)
+                    - 2.0 * torch.matmul(c3, table.T)
+                    + torch.sum(table, dim=1)[None, None, :])
+    seen = []
+    acs = tconv.viterbi_acs
+    monkeypatch.setattr(tconv, "viterbi_acs",
+                        lambda bm: seen.append(bm.clone()) or acs(bm))
+    bits, errs = dec(groups)
+    assert len(seen) == 1 and seen[0].shape == (7, 30, S)
+    assert torch.equal(seen[0], torch.cat(want))
+    assert bits.shape == (7, 30) and errs.shape == (7,)
+
+
 @pytest.mark.parametrize("k", [12, 16, 20])
 def test_short_decode_matches_jax(k):
     for params in (JParams, TParams):
