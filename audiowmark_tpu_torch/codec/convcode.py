@@ -95,10 +95,16 @@ def batch_branch_metrics(codeds: torch.Tensor, s_table: torch.Tensor,
     one parity table (STATE_COUNT, rate), via one matmul, written into
     `out` where it is given (a contiguous tensor of that shape).  In place,
     -2·M + c_sq + s_sum rounds as c_sq - 2·M + s_sum does: the factor 2 is
-    exact and a - b is a + (-b)."""
+    exact and a - b is a + (-b).  c_sq sums the squares left to right, as
+    the JAX package's jnp.sum does on the CPU: torch.sum rounds in another
+    order, and a last-bit difference in bm flips the trellis's near-ties
+    on noise."""
     rate = s_table.shape[1]
     c = codeds.reshape(codeds.shape[0], -1, rate)
-    c_sq = torch.sum(c * c, dim=2, keepdim=True)              # (B, steps, 1)
+    sq = c * c
+    c_sq = sq[:, :, :1]                                       # (B, steps, 1)
+    for p in range(1, rate):
+        c_sq = c_sq + sq[:, :, p:p + 1]
     s_sum = torch.sum(s_table, dim=1)[None, None, :]          # (1, 1, states)
     if out is None:
         out = torch.empty((c.shape[0], c.shape[1], s_table.shape[0]),

@@ -689,16 +689,11 @@ FLEET_STREAMS, FLEET_SECONDS, FLEET_TOP_K = 16, 60, 8
 
 def forward_cat(self, groups):
     """ViterbiDecoder.forward as it was before its branch metrics went into
-    one buffer: c_sq - 2·c·Sᵀ + s_sum per group in a list, then their
-    torch.cat (phase 16 compares the two)."""
+    one buffer: each group's metrics in a list, then their torch.cat
+    (phase 16 compares the two)."""
     from audiowmark_tpu_torch.codec import convcode
-    bms = []
-    for bt, c in groups:
-        table = self.table(bt)
-        c3 = c.reshape(c.shape[0], -1, table.shape[1])
-        bms.append(torch.sum(c3 * c3, dim=2, keepdim=True)
-                   - 2.0 * torch.matmul(c3, table.T)
-                   + torch.sum(table, dim=1)[None, None, :])
+    bms = [convcode.batch_branch_metrics(c, self.table(bt))
+           for bt, c in groups]
     n_coded = torch.cat([
         torch.full((c.shape[0],), float(c.shape[1]), dtype=torch.float32,
                    device=c.device) for _, c in groups])

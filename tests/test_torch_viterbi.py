@@ -186,23 +186,34 @@ def test_conv_decode_soft_mixed_matches_jax():
     assert np.isnan(tout[3][1][-1]) and np.isnan(jout[3][1][-1])
 
 
+@pytest.mark.parametrize("bt", list(jconv.ConvBlockType))
+def test_branch_metrics_match_jax_bit_for_bit(bt):
+    """batch_branch_metrics equals the JAX package's _batch_branch_metrics
+    bit for bit on noise-like soft bits: the same matmul order and the
+    squares summed left to right as jnp.sum does (torch.sum's order left
+    1.2 M of 4.7 M metrics a bit apart, enough to flip near-ties)."""
+    table = tconv._state_output_table(tconv.ConvBlockType(bt.value))
+    soft = np.random.RandomState(bt.value).rand(
+        5, 143 * table.shape[1]).astype(np.float32)
+    want = np.asarray(jconv._batch_branch_metrics(
+        jnp.asarray(soft), jnp.asarray(np.broadcast_to(table,
+                                                       (5,) + table.shape))))
+    got = tconv.batch_branch_metrics(torch.from_numpy(soft),
+                                     torch.from_numpy(table))
+    assert np.array_equal(got.numpy(), want)
+
+
 def test_forward_branch_metrics_in_one_buffer_equal_the_cat(monkeypatch):
     """ViterbiDecoder.forward writes each group's branch metrics into one
     preallocated (sum B_i, steps, STATE_COUNT) tensor; that tensor equals,
-    bit for bit, the torch.cat of c_sq - 2·c·Sᵀ + s_sum per group."""
+    bit for bit, the torch.cat of each group's metrics made apart."""
     rng = np.random.RandomState(5)
     groups = [(bt, torch.from_numpy(rng.rand(n, 30 * len(
         tconv.get_block_type_generators(bt))).astype(np.float32)))
         for bt, n in ((tconv.ConvBlockType.a, 3), (tconv.ConvBlockType.b, 2),
                       (tconv.ConvBlockType.ab, 2))]
     dec = tconv.viterbi_decoder("cpu")
-    want = []
-    for bt, c in groups:
-        table = dec.table(bt)
-        c3 = c.reshape(c.shape[0], -1, table.shape[1])
-        want.append(torch.sum(c3 * c3, dim=2, keepdim=True)
-                    - 2.0 * torch.matmul(c3, table.T)
-                    + torch.sum(table, dim=1)[None, None, :])
+    want = [tconv.batch_branch_metrics(c, dec.table(bt)) for bt, c in groups]
     seen = []
     acs = tconv.viterbi_acs
     monkeypatch.setattr(tconv, "viterbi_acs",
@@ -232,6 +243,25 @@ def test_short_decode_matches_jax(k):
                                       device="cpu")
     assert np.array_equal(tb, jb) and np.array_equal(tb, bits)
     np.testing.assert_allclose(te, je, rtol=1e-6)
+
+
+@pytest.mark.parametrize("k", [12, 16, 20])
+def test_short_decode_blk_matches_jax(k):
+    """The exact codeword match on a codeword (its message) and on that
+    codeword with one bit flipped (no codeword: empty), against the JAX
+    package's exhaustive search; the port builds its table once per k."""
+    for params in (JParams, TParams):
+        params.payload_short = True
+        params.payload_size = k
+    assert jshort.short_code_init(k) > 0
+    bits = np.random.RandomState(k).randint(0, 2, k)
+    word = jshort.short_encode_blk(bits)
+    bad = word.copy()
+    bad[k % word.size] ^= 1
+    for row, want in ((word, bits), (bad, np.empty(0, np.int32))):
+        got = tshort.short_decode_blk(row)
+        assert np.array_equal(got, jshort.short_decode_blk(row))
+        assert np.array_equal(got, want) and got.dtype == np.int32
 
 
 def test_decision_packing_round_trips():
