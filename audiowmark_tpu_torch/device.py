@@ -48,3 +48,24 @@ def spread(device: DeviceLike, n: int) -> List[torch.device]:
         return [dev] * n
     have = torch.cuda.device_count()
     return [torch.device("cuda", i % have) for i in range(n)]
+
+
+def _set_up_vector_math() -> None:
+    """Make the process's first call into MKL's vector math on one thread.
+
+    On the CPU, torch.log, exp, sqrt, sin, log10 and their kin over 2048
+    or more float32 elements split over the OpenMP threads and call MKL's
+    vector math library, which sets itself up at its first call.  When that
+    first call runs on several threads at once, the calling thread's share
+    can come out of another code path: in 3-13 % of fresh processes most of
+    the main thread's share of the first torch.log differs from every later
+    call on the same input (~28700 of 32832 elements, not correctly
+    rounded), so the same embed gave two results in one process.  One call
+    on one thread first (one element: below the split) sets the library up
+    for every function, and every call after it gives the same bits
+    (tests/test_torch_mesh.py::test_first_embed_of_a_process_equals_the_next).
+    """
+    torch.log(torch.ones(1))
+
+
+_set_up_vector_math()

@@ -8,6 +8,9 @@ rate give the same bytes from either package.
 `long_noise` is seeded uniform stereo noise for long fixtures, where the
 AES-CTR keystream in numpy would take minutes.
 
+`raw_format` and `write_wav` make the inputs of the stream cases: a raw
+PCM format by name, and a WAV file in any sample format.
+
 `acs_check_metrics` gives branch metrics that hold the Viterbi trellis's
 hard cases, for checking kernel K1 against its plain version, and
 `acs_equal` is that check.
@@ -21,12 +24,44 @@ import torch
 from .crypto import aes
 from .crypto.keys import Key
 from .crypto.prng import Random, Stream
+from .io import wavfile
+from .io.converters import RawConverter
 from .io.wavdata import WavData
+from .params import Encoding, RawFormat
 
 from .codec.convcode import (ConvBlockType, _state_output_table,
                              batch_branch_metrics, conv_encode)
 from .models.decoder import normalize_soft_bits
 from .ops.viterbi import ORDER, STATE_COUNT
+
+
+def raw_format(encoding: str, bits: int, endian: str = "little",
+               rate: int = 44100) -> RawFormat:
+    """The stereo RawFormat of `encoding` ("signed", "unsigned" or
+    "float"), `bits` and `endian` ("little" or "big")."""
+    fmt = RawFormat()
+    fmt.set_encoding({"signed": Encoding.SIGNED, "unsigned":
+                      Encoding.UNSIGNED, "float": Encoding.FLOAT}[encoding])
+    fmt.set_bit_depth(bits)
+    fmt.set_endian(RawFormat.Endian.BIG if endian == "big"
+                   else RawFormat.Endian.LITTLE)
+    fmt.set_sample_rate(rate)
+    return fmt
+
+
+def write_wav(path: str, samples: np.ndarray, bits: int,
+              encoding: Encoding, rate: int = 44100) -> None:
+    """Stereo `samples` as a WAV file of `bits` and `encoding`, 8-bit
+    unsigned included (io/wavfile.py's writer writes 16 bits and up)."""
+    with open(path, "wb") as f:
+        if bits == 8:
+            data = RawConverter(raw_format("unsigned", 8)).to_raw(samples)
+            f.write(wavfile.build_header(2, rate, 8, Encoding.UNSIGNED,
+                                         len(data), False) + data)
+            return
+        w = wavfile.WavFileWriter(f, 2, rate, bits, encoding)
+        w.write_frames(samples)
+        w.close()
 
 
 def acs_check_metrics(seed: int, batch: int, steps: int,

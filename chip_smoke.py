@@ -111,22 +111,46 @@ get_watermark as `cmp` — on deterministic 16-bit stereo noise at 44.1 kHz
      seeds): noise with none, resample:48000, trunc:15 and clip:10, the
      five other carriers with none, noise@200s with none; every FLOOR row
      BER 0 and FER 0, each row beside docs/BER.md's numbers; the codec rows
-     are listed with why they do not run here.
+     are listed with why they do not run here;
+ 22. streams: the shell's streams.  As processes of their own
+     (`python3 -m audiowmark_tpu_torch`, no device setting): `add n200.wav
+     - | cmp -` through a pipe -> match_count 5, the marked bytes piped
+     into `get -` -> 5 patterns with the message, raw PCM of the 60 s
+     fixture piped into `add --input-format raw --output-format wav-pipe -
+     -` with and without the limiter (header sizes 0xFFFFFFFF), and
+     `add --output-format wav-pipe` to stdout.  In this process, through
+     the port's cli.main: the unknown-length add of the raw file with its
+     tiles recorded (they ramp 16 -> 512 frames) against the known-length
+     streaming add of the WAV (`add --snr`): <= 1 LSB on < 1e-3 of the
+     samples with and without the limiter, and whether it is exact
+     without (the rule of phase 10, there on 4096-frame tiles); the stdin
+     adds within 1 LSB of it; `cmp --input-format wav-pipe`; and every
+     sample format through add and cmp (raw signed 16 little and big, 24,
+     32, unsigned 8 and 16, float, double big-endian; WAV input of 8-bit
+     unsigned, 24 and 32-bit int and 32-bit float; --output-format rf64),
+     each -> match_count 3, all with --strict;
+ 23. quality: the strength sweep of docs/QUALITY.md (quality_report.py):
+     the noise and tonal carriers of 30 s, `add --strength S --snr` at
+     strengths 30, 20, 15, 10, 5, 3, 2, 1 on the card and on the CPU: SNR
+     and NMR within 1e-3 dB of the CPU's, the marked files <= 1 LSB apart,
+     the tool's checks pass on the card's rows; the mp3 anchors run where
+     libmp3lame and libmpg123 load, else are listed as not run.
 
 Phase 16 also runs detect_batch with the branch metrics in one buffer
 (ViterbiDecoder.forward) and in their former list and torch.cat: the
 metrics equal bit for bit, and the peak memory of each.
 
-Every phase 9-21 prints one line (20 and 21 one more per mode and row).
+Every phase 9-23 prints one line (20 and 21 one more per mode and row).
 Each path (the main path of phases 5-7; the 32 kHz add and get, the 48 kHz
 get, the streaming add and its get, the --test-no-sync get, the 32-min add
 and get, the speed gets, the fleet calls, the gets of phase 17, the HLS
-get, the modes' adds and gets at production geometry, the BER rows) has
+get, the modes' adds and gets at production geometry, the BER rows, the
+in-process gets of phase 22) has
 K1's launch count reset to 0 just before it and read just after: each must
 be above 0.  The kernels line gives their sum as `launches` and each of
 them in `launches_by_path`.
 
-`python3 chip_smoke.py --new-only` runs phases 1, 2, 20 and 21 alone; it
+`python3 chip_smoke.py --new-only` runs phases 1, 2, 22 and 23 alone; it
 prints no kernels line.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -327,15 +351,22 @@ def info_line(info, name):
     return lines[0]
 
 
-def lsb_apart(a_path, b_path):
-    """(largest difference in 16-bit LSBs, samples that differ)."""
-    from audiowmark_tpu_torch.io.wavdata import WavData
-    a = WavData.load(a_path).samples.astype(np.float64)
-    b = WavData.load(b_path).samples.astype(np.float64)
+def samples_apart(a, b, what):
+    """(largest difference in 16-bit LSBs, samples that differ) of two
+    sample arrays."""
     check(a.shape == b.shape and np.isfinite(a).all(),
-          "%s and %s differ in length or are not finite" % (a_path, b_path))
-    lsb = np.abs(np.round((a - b) * 32768))
-    return float(lsb.max()), int(np.count_nonzero(lsb)), int(lsb.size)
+          "%s: lengths differ or samples are not finite" % what)
+    lsb = np.abs(np.round((a.astype(np.float64) - b) * 32768))
+    return float(lsb.max()), int(np.count_nonzero(lsb))
+
+
+def lsb_apart(a_path, b_path):
+    """(largest difference in 16-bit LSBs, samples that differ, samples)
+    of two wav files."""
+    from audiowmark_tpu_torch.io.wavdata import WavData
+    a = WavData.load(a_path).samples
+    return samples_apart(a, WavData.load(b_path).samples,
+                         "%s and %s" % (a_path, b_path)) + (int(a.size),)
 
 
 def phase_resample(port, key, d, smi):
@@ -644,10 +675,16 @@ def phase_speed(port, key, d, smi):
     return launches, k1
 
 
+def card_env():
+    """The environment without a device setting: the port's command line
+    runs on the card."""
+    return {k: v for k, v in os.environ.items()
+            if k != "AUDIOWMARK_TORCH_DEVICE"}
+
+
 def phase_cli(d, smi):
     """15. the port's command line in processes of its own, on the card."""
-    env = {k: v for k, v in os.environ.items()
-           if k != "AUDIOWMARK_TORCH_DEVICE"}
+    env = card_env()
     noise, wm = os.path.join(d, "cli_n.wav"), os.path.join(d, "cli_wm.wav")
     out_json = os.path.join(d, "cli.json")
     seconds = {}
@@ -1427,6 +1464,295 @@ def phase_ber(d, smi):
     return launches
 
 
+def run_cli(argv):
+    """The port's cli.main(argv) in this process, on the card: (exit code,
+    stdout, stderr, wall s); Params and the log level reset around it."""
+    from audiowmark_tpu_torch.cli import main as cli_main
+    from audiowmark_tpu_torch.utils import log
+    set_params()
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    set_params()
+    log.set_log_level(log.Log.INFO)
+    return rc, out.getvalue(), err.getvalue(), wall
+
+
+def port_process(args, **kwargs):
+    """`python3 -m audiowmark_tpu_torch <args>` with no device setting (so
+    on the card), as subprocess.Popen(**kwargs)."""
+    return subprocess.Popen([sys.executable, "-m", "audiowmark_tpu_torch"]
+                            + args, cwd=REPO, env=card_env(), **kwargs)
+
+
+def finished(proc, what, stdin=None, timeout=600):
+    """(stdout, stderr) of a port_process that must exit 0; `stdin`: bytes
+    for its standard input."""
+    out, err = proc.communicate(stdin, timeout=timeout)
+    check(proc.returncode == 0, "%s: exit %d:\n%s" % (
+        what, proc.returncode, err.decode(errors="replace")))
+    return out, err
+
+
+def wav_pipe_samples(path):
+    from audiowmark_tpu_torch.io.wavdata import WavData
+    from audiowmark_tpu_torch.params import Format
+    set_params(input_format=Format.WAV_PIPE)
+    samples = WavData.load(path).samples
+    set_params()
+    return samples
+
+
+def matches(text):
+    for line in text.splitlines():
+        if line.startswith("match_count "):
+            return int(line.split()[1])
+    return None
+
+
+# phase 22's sample formats, each marked and read back by cmp on the 60 s
+# fixture (3 matches): raw PCM as (name, its --raw-* options), WAV input as
+# (name, bits, encoding, further add options)
+STREAM_RAW = [
+    ("raw_s16", ["--raw-encoding", "signed", "--raw-bits", "16"]),
+    ("raw_s16_big", ["--raw-encoding", "signed", "--raw-bits", "16",
+                     "--raw-endian", "big"]),
+    ("raw_s24", ["--raw-encoding", "signed", "--raw-bits", "24"]),
+    ("raw_s32", ["--raw-encoding", "signed", "--raw-bits", "32"]),
+    ("raw_u8", ["--raw-encoding", "unsigned", "--raw-bits", "8"]),
+    ("raw_u16", ["--raw-encoding", "unsigned", "--raw-bits", "16"]),
+    ("raw_f32", ["--raw-encoding", "float"]),
+    ("raw_f64_big", ["--raw-encoding", "double", "--raw-endian", "big"]),
+]
+STREAM_WAV = [("wav_u8", 8, "UNSIGNED", []), ("wav_s24", 24, "SIGNED", []),
+              ("wav_s32", 32, "SIGNED", []), ("wav_f32", 32, "FLOAT", []),
+              ("rf64_out", 16, "SIGNED", ["--output-format", "rf64"])]
+
+
+def raw_options_format(options):
+    """The RawFormat that --raw-* `options` name."""
+    from audiowmark_tpu_torch.fixtures import raw_format
+    opts = dict(zip(options[::2], options[1::2]))
+    enc = opts["--raw-encoding"]
+    if enc in ("float", "double"):
+        return raw_format("float", 64 if enc == "double" else 32,
+                          opts.get("--raw-endian", "little"))
+    return raw_format(enc, int(opts["--raw-bits"]),
+                      opts.get("--raw-endian", "little"))
+
+
+def phase_streams(d, smi):
+    """22. the shell's streams on the card.  Returns K1's launches over the
+    phase's in-process gets (the format matrix and the wav-pipe cmp)."""
+    from audiowmark_tpu_torch.fixtures import write_wav
+    from audiowmark_tpu_torch.io.converters import RawConverter
+    from audiowmark_tpu_torch.io.wavdata import WavData
+    from audiowmark_tpu_torch.models import embedder
+    from audiowmark_tpu_torch.ops.frames import FRAME
+    from audiowmark_tpu_torch.params import Encoding
+    t_phase = time.perf_counter()
+    fields, seconds = {}, {}
+    n200, n60 = os.path.join(d, "n200.wav"), os.path.join(d, "n60.wav")
+    s16 = raw_options_format(STREAM_RAW[0][1])
+    raw60 = os.path.join(d, "n60.raw")
+    with open(raw60, "wb") as f:
+        f.write(RawConverter(s16).to_raw(WavData.load(n60).samples))
+
+    # add in.wav - MSG | cmp - MSG, two processes and a pipe, 200 s
+    t0 = time.perf_counter()
+    add = port_process(["--strict", "add", n200, "-", MSG],
+                       stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    cmp_p = port_process(["--strict", "cmp", "-", MSG], stdin=add.stdout,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    add.stdout.close()
+    out, _ = finished(cmp_p, "cmp - of the piped add")
+    check(add.wait(timeout=60) == 0, "add to stdout failed")
+    seconds["pipe_add_cmp_s"] = time.perf_counter() - t0
+    fields["pipe_match_count"] = matches(out.decode())
+    check(fields["pipe_match_count"] == 5, "add | cmp -:\n" + out.decode())
+
+    # add in.wav - | get -: the marked bytes piped into get
+    marked = os.path.join(d, "piped200.wav")
+    out, _ = finished(port_process(["--strict", "add", n200, "-", MSG],
+                                   stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE), "add to stdout")
+    with open(marked, "wb") as f:
+        f.write(out)
+    t0 = time.perf_counter()
+    out, _ = finished(port_process(["--strict", "get", "-"],
+                                   stdin=subprocess.PIPE,
+                                   stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE), "get -", out)
+    seconds["pipe_get_s"] = time.perf_counter() - t0
+    fields["pipe_get_patterns"] = sum(
+        line.split()[2] == MSG for line in out.decode().splitlines()
+        if line.startswith("pattern"))
+    check(fields["pipe_get_patterns"] == 5, "add | get -:\n" + out.decode())
+
+    # the unknown-length add from stdin to stdout (raw in, wav-pipe out),
+    # with and without the limiter, two processes side by side
+    t0 = time.perf_counter()
+    procs = {}
+    for lim in (True, False):
+        opt = [] if lim else ["--test-no-limiter"]
+        with open(raw60, "rb") as stdin:
+            procs[lim] = port_process(
+                ["--strict", "add", "--input-format", "raw", "--raw-rate",
+                 "44100", "--output-format", "wav-pipe"] + opt
+                + ["-", "-", MSG], stdin=stdin, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE)
+    piped = {}
+    for lim, proc in procs.items():
+        out, _ = finished(proc, "the unknown-length add from stdin")
+        check(out[4:8] == b"\xff\xff\xff\xff", "not a wav-pipe header")
+        piped[lim] = os.path.join(d, "stdin_add_%d.wav" % lim)
+        with open(piped[lim], "wb") as f:
+            f.write(out)
+    seconds["stdin_add_s"] = time.perf_counter() - t0
+
+    # the same adds in this process, the tiles recorded, against the
+    # known-length streaming add of the WAV (--snr sends it there)
+    tiles, run = [], embedder.StreamingEmbedder.run
+
+    def recording(self, samples):
+        tiles.append(samples.size // self.n_channels // FRAME)
+        return run(self, samples)
+
+    for lim in (True, False):
+        opt = [] if lim else ["--test-no-limiter"]
+        unknown = os.path.join(d, "unknown_%d.wav" % lim)
+        known = os.path.join(d, "known_%d.wav" % lim)
+        embedder.StreamingEmbedder.run = recording
+        try:
+            del tiles[:]
+            rc, _, _, wall = run_cli(
+                ["--strict", "add", "--input-format", "raw", "--raw-rate",
+                 "44100"] + opt + [raw60, unknown, MSG])
+        finally:
+            embedder.StreamingEmbedder.run = run
+        check(rc == 0, "the unknown-length add of the raw file")
+        rc, _, _, known_s = run_cli(["--strict", "add", "--snr"] + opt
+                                    + [n60, known, MSG])
+        check(rc == 0, "the known-length streaming add")
+        tag = "limiter" if lim else "no_limiter"
+        worst, n, size = lsb_apart(unknown, known)
+        fields[tag] = dict(lsb_apart=n, largest_lsb=worst,
+                           exact=n == 0, unknown_add_s=wall,
+                           known_add_s=known_s)
+        check(worst <= 1 and n < 1e-3 * size,
+              "unknown- vs known-length add (%s): %d samples, up to %g "
+              "LSB" % (tag, n, worst))
+        worst, n = samples_apart(wav_pipe_samples(piped[lim]),
+                                 WavData.load(unknown).samples, tag)
+        check(worst <= 1, "the stdin add is %g LSB from the same add of the "
+              "raw file" % worst)
+        fields[tag]["stdin_vs_file_lsb_apart"] = n
+    fields["unknown_tiles"] = sorted(set(tiles))
+    fields["unknown_tile_count"] = len(tiles)
+    check(16 in tiles and 512 in tiles, "the tiles did not ramp: %s"
+          % sorted(set(tiles)))
+
+    # wav-pipe to stdout, read back with cmp --input-format wav-pipe, and
+    # every sample format through add and cmp, in this process
+    def gets():
+        counts = {}
+        wp = os.path.join(d, "wav_pipe.wav")
+        with open(wp, "wb") as f:
+            finished(port_process(
+                ["--strict", "add", "--output-format", "wav-pipe", n60, "-",
+                 MSG], stdout=f, stderr=subprocess.PIPE), "wav-pipe add")
+        with open(wp, "rb") as f:
+            check(f.read(8)[4:] == b"\xff\xff\xff\xff",
+                  "not a wav-pipe header")
+        rc, out, _, wall = run_cli(["--strict", "cmp", "--input-format",
+                                    "wav-pipe", wp, MSG])
+        counts["wav_pipe"] = (rc, matches(out), wall)
+        samples = WavData.load(n60).samples
+        for name, opts in STREAM_RAW:
+            src = os.path.join(d, name + ".raw")
+            dst = os.path.join(d, name + "_wm.raw")
+            with open(src, "wb") as f:
+                f.write(RawConverter(raw_options_format(opts)).to_raw(samples))
+            raw = ["--format", "raw", "--raw-rate", "44100"] + opts
+            rc, _, _, add_s = run_cli(["--strict", "add"] + raw
+                                      + [src, dst, MSG])
+            check(rc == 0 and os.path.getsize(dst) == os.path.getsize(src),
+                  "add of " + name)
+            rc, out, _, wall = run_cli(["--strict", "cmp"] + raw
+                                       + [dst, MSG])
+            counts[name] = (rc, matches(out), add_s + wall)
+        for name, bits, enc, opts in STREAM_WAV:
+            src = os.path.join(d, name + ".wav")
+            dst = os.path.join(d, name + "_wm.wav")
+            write_wav(src, samples, bits, Encoding[enc])
+            rc, _, _, add_s = run_cli(["--strict", "add"] + opts
+                                      + [src, dst, MSG])
+            check(rc == 0, "add of " + name)
+            with open(dst, "rb") as f:
+                check(f.read(4) == (b"RF64" if opts else b"RIFF"),
+                      name + ": wrong container")
+            rc, out, _, wall = run_cli(["--strict", "cmp", dst, MSG])
+            counts[name] = (rc, matches(out), add_s + wall)
+        return counts
+
+    counts, launches = launches_of("the gets of phase 22", gets)
+    for name, (rc, n, wall) in counts.items():
+        check(rc == 0 and n == 3, "%s: exit %d, match_count %s (not 3)"
+              % (name, rc, n))
+        seconds[name + "_s"] = wall
+    phase("streams", match_counts={k: v[1] for k, v in counts.items()},
+          k1_launches=launches, seconds=time.perf_counter() - t_phase,
+          card=smi, **fields, **seconds)
+    return launches
+
+
+def phase_quality(d, smi):
+    """23. the strength sweep of docs/QUALITY.md on the card against the
+    same sweep on the CPU (30 s carriers, 8 strengths each): SNR and NMR
+    within 1e-3 dB, the marked files <= 1 LSB apart, the tool's checks."""
+    from audiowmark_tpu_torch import quality_report as qr
+    from audiowmark_tpu_torch.io.wavdata import WavData
+    t_phase = time.perf_counter()
+    missing = qr.anchors_missing()
+    fields, worst_db, apart = {}, 0.0, 0
+    for carrier in qr.CARRIERS:
+        src = os.path.join(d, "q_%s.wav" % carrier)
+        qr.GENERATORS[carrier](src, 30)
+        t0 = time.perf_counter()
+        card = qr.sweep(src, d, tag="_card")
+        card_s = time.perf_counter() - t0
+        cpu = qr.sweep(src, d, device="cpu", tag="_cpu")
+        for (s, snr, nmr), (_, snr_c, nmr_c) in zip(card, cpu):
+            worst_db = max(worst_db, abs(snr - snr_c), abs(nmr - nmr_c))
+            lsb, n, _ = lsb_apart(*(os.path.join(
+                d, "q_%s_%s_s%d.wav" % (carrier, tag, s))
+                for tag in ("card", "cpu")))
+            check(lsb <= 1, "%s strength %d: card and CPU adds %g LSB "
+                  "apart" % (carrier, s, lsb))
+            apart += n
+        anchors = None
+        if not missing:
+            orig = WavData.load(src)
+            anchors = {br: qr.mp3_anchor_nmr(orig, br)
+                       for br in qr.ANCHOR_BITRATES}
+        failures = qr.checks(carrier, card, anchors)
+        check(not failures, "; ".join(failures))
+        fields[carrier] = dict(snr_db=[r[1] for r in card],
+                               nmr_db=[r[2] for r in card],
+                               cpu_snr_db=[r[1] for r in cpu],
+                               cpu_nmr_db=[r[2] for r in cpu],
+                               card_sweep_s=card_s)
+    check(worst_db <= 1e-3, "card vs CPU SNR/NMR %.6f dB apart" % worst_db)
+    phase("quality", strengths=qr.STRENGTHS, card_vs_cpu_max_db=worst_db,
+          samples_lsb_apart=apart, checks="pass",
+          mp3_anchors=("not run: %s does not load here" % missing
+                       if missing else "run"),
+          seconds=time.perf_counter() - t_phase, card=smi, **fields)
+
+
 def main_path(port, key, d, n200, wm200, smi):
     """5.-7. 200 s add and cmp (cold, warm), the SNR, 60 s and 30 s."""
     from audiowmark_tpu_torch.io.wavdata import WavData
@@ -1576,9 +1902,14 @@ def main() -> int:
             paths["hls"] = phase_hls(port, key, d, smi)
             phase_profile(d, smi)
 
-        # ---- 20.-21. the command line's modes, the codec-free BER rows ----
-        paths["modes"] = phase_modes(port, d, smi, checks)
-        paths["ber"] = phase_ber(d, smi)
+            # ---- 20.-21. the command line's modes, the codec-free BER
+            # rows ----
+            paths["modes"] = phase_modes(port, d, smi, checks)
+            paths["ber"] = phase_ber(d, smi)
+
+        # ---- 22.-23. the shell's streams, the strength sweep ----
+        paths["streams"] = phase_streams(d, smi)
+        phase_quality(d, smi)
 
     phase("total", seconds=time.perf_counter() - t_script, card=smi)
     if new_only:
