@@ -10,7 +10,8 @@ Port of audiowmark_tpu/ops/frames.py.  Reference behavior:
 
 `add_file_core` is plain PyTorch on the device: window -> rfft -> delta on
 the keyed bins -> irfft -> 3-frame overlap-add -> mix -> limiter -> int16
-trunc-clip, in one pass over the whole file.  `embed_delta_frames` is the
+trunc-clip, in one pass over the whole file (the delta's FFTs in calls of
+DELTA_FRAMES frames, as on every add path).  `embed_delta_frames` is the
 streaming add's tile step: the same delta and overlap-add, with the last
 two iffts carried on the device from tile to tile.  FFTW's unnormalized
 c2r is matched as irfft * FRAME.
@@ -29,6 +30,11 @@ FRAME = Params.frame_size
 N_BINS = FRAME // 2 + 1
 MIN_DB = -96.0
 _LOG2_DB = 3.01029995663981  # 10 / log2(10)
+# frames per call of the delta's FFTs (_delta_iffts).  On an H100,
+# cuFFT's rfft and irfft of 1024 points give other bits at a batch of up
+# to 1024 rows than at 2048 rows and more; from 1024 stereo frames on,
+# every batch gives each row the same bits (tile_probe.py stages)
+DELTA_FRAMES = 1024
 
 
 @lru_cache(maxsize=None)
@@ -84,21 +90,53 @@ def limiter_apply(mixed: torch.Tensor, ceiling: torch.Tensor,
     return out[:n]
 
 
+def _spectrum(frames: torch.Tensor, awin: torch.Tensor) -> torch.Tensor:
+    """(T, C, FRAME) frames -> (T, C, N_BINS) rfft of the windowed frames."""
+    return torch.fft.rfft(frames * awin, dim=-1)
+
+
+def _delta_spectrum(spec: torch.Tensor, mods: torch.Tensor,
+                    water_delta: float) -> torch.Tensor:
+    """spec * (mag^(-wd*sign) - 1) on the marked bins of (T, N_BINS) int8
+    mods, with a 1e-7 magnitude guard; 0 elsewhere."""
+    mag = torch.abs(spec)
+    sign = mods.to(torch.float32)[:, None, :]
+    safe_mag = torch.clamp_min(mag, 1e-7)
+    factor = torch.exp(torch.log(safe_mag) * _f32(-water_delta, mag)
+                       * sign) - 1.0
+    factor = torch.where((mag > 1e-7) & (sign != 0), factor,
+                         torch.zeros_like(factor))
+    return spec * factor
+
+
+def _synthesis(dspec: torch.Tensor) -> torch.Tensor:
+    """irfft * FRAME (FFTW's unnormalized c2r) of (T, C, N_BINS) spectra."""
+    return torch.fft.irfft(dspec, n=FRAME, dim=-1) * FRAME
+
+
 def _delta_iffts(frames: torch.Tensor, mods: torch.Tensor,
                  water_delta: float, awin: torch.Tensor) -> torch.Tensor:
     """(T, C, FRAME) frames, (T, N_BINS) int8 mods -> the (T, C, FRAME)
     delta frames before overlap-add: window -> rfft -> mag^(-wd*sign) - 1
-    on marked bins (1e-7 magnitude guard) -> irfft * FRAME (FFTW's
-    unnormalized c2r)."""
-    spec = torch.fft.rfft(frames * awin, dim=-1)          # (T, C, N_BINS)
-    mag = torch.abs(spec)
-    sign = mods.to(torch.float32)[:, None, :]
-    safe_mag = torch.clamp_min(mag, 1e-7)
-    factor = torch.exp(torch.log(safe_mag) * _f32(-water_delta, frames)
-                       * sign) - 1.0
-    factor = torch.where((mag > 1e-7) & (sign != 0), factor,
-                         torch.zeros_like(factor))
-    return torch.fft.irfft(spec * factor, n=FRAME, dim=-1) * FRAME
+    on marked bins (1e-7 magnitude guard) -> irfft * FRAME.
+
+    The frames go through in calls of exactly DELTA_FRAMES frames, the
+    last one filled up with zero frames (their delta is exactly zero and
+    is cut off): cuFFT's rows at one batch size may differ in the last bit
+    from the same rows at another, and this way every add path, whatever
+    its tiles, gives each frame the same bits."""
+    n = frames.shape[0]
+    padded = -(-n // DELTA_FRAMES) * DELTA_FRAMES
+    if padded != n:
+        frames = torch.cat([frames, frames.new_zeros(
+            (padded - n,) + frames.shape[1:])])
+        mods = torch.cat([mods, mods.new_zeros((padded - n, mods.shape[1]))])
+    out = frames.new_empty(frames.shape)
+    for s in range(0, padded, DELTA_FRAMES):
+        e = s + DELTA_FRAMES
+        out[s:e] = _synthesis(_delta_spectrum(
+            _spectrum(frames[s:e], awin), mods[s:e], water_delta))
+    return out[:n]
 
 
 def embed_delta_frames(frames: torch.Tensor, mods: torch.Tensor,

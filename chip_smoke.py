@@ -31,10 +31,11 @@ get_watermark as `cmp` — on deterministic 16-bit stereo noise at 44.1 kHz
   9. resample: 200 s at 32 kHz, add (the streaming add through the
      resampler pair) then cmp -> 5; the marked file resampled to 48 kHz
      on the card, cmp -> 5;
- 10. stream_add: the 200 s file through the streaming add (Params.snr
-     sends it there) vs the whole-file add: bit-exact with the limiter off,
-     <= 1 LSB on < 1e-3 of the samples with it on, Data Blocks equal;
-     cmp -> 5;
+ 10. stream_add: the 200, 60 and 30 s files (whole-file passes of 8614,
+     2584 and 1292 frames) through the streaming add (`add --snr` sends it
+     there; 4096-frame tiles) vs the whole-file add: 0 samples apart with
+     the limiter off, <= 1 LSB on < 1e-3 of the samples with it on, Data
+     Blocks equal; cmp of the 200 s one -> 5;
  11. no_sync: --test-no-sync cmp of the 200 s marked file -> 5;
  12. staged: the staged search vs the fused one on the card, BLOCK on the
      200 s marked file and CLIP on the 60 s one's start window: indices
@@ -121,10 +122,17 @@ get_watermark as `cmp` — on deterministic 16-bit stereo noise at 44.1 kHz
      `add --output-format wav-pipe` to stdout.  In this process, through
      the port's cli.main: the unknown-length add of the raw file with its
      tiles recorded (they ramp 16 -> 512 frames) against the known-length
-     streaming add of the WAV (`add --snr`): <= 1 LSB on < 1e-3 of the
-     samples with and without the limiter, and whether it is exact
-     without (the rule of phase 10, there on 4096-frame tiles); the stdin
-     adds within 1 LSB of it; `cmp --input-format wav-pipe`; and every
+     streaming add of the WAV (`add --snr`), and the same at 32 kHz (raw
+     PCM of 60 s of test-gen-noise at 32000 against its WAV, both through
+     the resampler pair): 0 samples apart without the limiter, <= 1 LSB on
+     < 1e-3 of the samples with it (the rule of phase 10); the stdin adds
+     within 1 LSB of the in-process one; the probe of tile_probe.py: the
+     delta's stages (window + rfft, the exp/log factor, irfft) and the
+     whole _delta_iffts on consecutive slices of T = 1 ... 4096 frames of
+     the 200 s fixture against one call on 4096 frames, rows apart per
+     stage, the stages that differ, the T from which they agree, and
+     DELTA_FRAMES; _delta_iffts must agree at every T;
+     `cmp --input-format wav-pipe`; and every
      sample format through add and cmp (raw signed 16 little and big, 24,
      32, unsigned 8 and 16, float, double big-endian; WAV input of 8-bit
      unsigned, 24 and 32-bit int and 32-bit float; --output-format rf64),
@@ -134,24 +142,31 @@ get_watermark as `cmp` — on deterministic 16-bit stereo noise at 44.1 kHz
      strengths 30, 20, 15, 10, 5, 3, 2, 1 on the card and on the CPU: SNR
      and NMR within 1e-3 dB of the CPU's, the marked files <= 1 LSB apart,
      the tool's checks pass on the card's rows; the mp3 anchors run where
-     libmp3lame and libmpg123 load, else are listed as not run.
+     libmp3lame and libmpg123 load, else are listed as not run;
+ 24. ttfb: the reference's latency harness (ttfb.py, a process of its own
+     reading stdin, wav-pipe out) on the 200 s fixture as a WAV (known
+     length) and as raw PCM (the unknown-length ramp): ttfb, total s and
+     MB/s beside phase 15's process walls, every byte counted, each output
+     decoded by cmp -> 5; and in this process the time from the call of
+     add_stream_watermark on phase 22's 60 s raw file to its first write of
+     samples, with the limiter and without it, first and warm.
 
 Phase 16 also runs detect_batch with the branch metrics in one buffer
 (ViterbiDecoder.forward) and in their former list and torch.cat: the
 metrics equal bit for bit, and the peak memory of each.
 
-Every phase 9-23 prints one line (20 and 21 one more per mode and row).
+Every phase 9-24 prints one line (20 and 21 one more per mode and row).
 Each path (the main path of phases 5-7; the 32 kHz add and get, the 48 kHz
 get, the streaming add and its get, the --test-no-sync get, the 32-min add
 and get, the speed gets, the fleet calls, the gets of phase 17, the HLS
 get, the modes' adds and gets at production geometry, the BER rows, the
-in-process gets of phase 22) has
+in-process gets of phase 22, the gets of phase 24) has
 K1's launch count reset to 0 just before it and read just after: each must
 be above 0.  The kernels line gives their sum as `launches` and each of
 them in `launches_by_path`.
 
-`python3 chip_smoke.py --new-only` runs phases 1, 2, 22 and 23 alone; it
-prints no kernels line.
+`python3 chip_smoke.py --new-only` runs phases 1, 2 (and the small check
+of 4), 10, 22 and 24 alone; it prints no kernels line.
 
 Any failed check raises: the script exits non-zero and prints no result.
 Without a CUDA device it exits 1 before any work.  On success the line
@@ -360,15 +375,6 @@ def samples_apart(a, b, what):
     return float(lsb.max()), int(np.count_nonzero(lsb))
 
 
-def lsb_apart(a_path, b_path):
-    """(largest difference in 16-bit LSBs, samples that differ, samples)
-    of two wav files."""
-    from audiowmark_tpu_torch.io.wavdata import WavData
-    a = WavData.load(a_path).samples
-    return samples_apart(a, WavData.load(b_path).samples,
-                         "%s and %s" % (a_path, b_path)) + (int(a.size),)
-
-
 def phase_resample(port, key, d, smi):
     """9. 200 s at 32 kHz: add, cmp; resample to 48 kHz on the card, cmp.
     Returns K1's launches on each of the two paths."""
@@ -395,8 +401,8 @@ def phase_resample(port, key, d, smi):
 
 
 def phase_stream_add(port, key, d, smi):
-    """10. the 200 s file through the streaming add vs the whole-file add;
-    returns K1's launches over the phase."""
+    """10. the 200, 60 and 30 s files through the streaming add vs the
+    whole-file add; returns K1's launches over the phase."""
     fields, launches = launches_of("the streaming add path",
                                    lambda: _stream_add(port, key, d))
     phase("stream_add", k1_launches=launches, card=smi, **fields)
@@ -404,32 +410,38 @@ def phase_stream_add(port, key, d, smi):
 
 
 def _stream_add(port, key, d):
-    n200 = os.path.join(d, "n200.wav")
-    walls, infos, paths = {}, {}, {}
-    for lim in ("lim", "nolim"):
-        for path in ("fast", "stream"):
-            name = path + "_" + lim
-            paths[name] = os.path.join(d, name + ".wav")
-            walls[name], infos[name] = add(
-                port, key, n200, paths[name], snr=path == "stream",
-                test_no_limiter=lim == "nolim")
-    for lim in ("lim", "nolim"):
-        check(info_line(infos["fast_" + lim], "Data Blocks")
-              == info_line(infos["stream_" + lim], "Data Blocks"),
-              "Data Blocks differ between the streaming and whole-file add")
-    nolim = lsb_apart(paths["fast_nolim"], paths["stream_nolim"])
-    check(nolim[1] == 0, "streaming add without the limiter is not "
-          "bit-exact with the whole-file add: %d samples differ" % nolim[1])
-    lim = lsb_apart(paths["fast_lim"], paths["stream_lim"])
-    check(lim[0] <= 1 and lim[1] < 1e-3 * lim[2], "streaming add with the "
-          "limiter: %d of %d samples up to %g LSB from the whole-file add"
-          % (lim[1], lim[2], lim[0]))
-    _, get_s, _ = cmp(port, key, paths["stream_lim"], 5)
-    return dict(snr=info_line(infos["stream_lim"], "SNR"),
-                data_blocks=info_line(infos["stream_lim"], "Data Blocks"),
-                lsb_apart_limiter=lim[1], lsb_apart_no_limiter=nolim[1],
-                samples=lim[2], stream_add_s=walls["stream_lim"],
-                fast_add_s=walls["fast_lim"], get_s=get_s, match_count=5)
+    from audiowmark_tpu_torch import tile_probe
+    fields = {}
+    for secs in (200, 60, 30):
+        wav = os.path.join(d, "n%d.wav" % secs)
+        for lim in (True, False):
+            r = tile_probe.whole_vs_stream(wav, lim)
+            what = "%d s, %s the limiter" % (secs, "with" if lim else
+                                            "without")
+            check(info_line(r["info_whole"], "Data Blocks")
+                  == info_line(r["info_stream"], "Data Blocks"),
+                  "%s: Data Blocks differ between the streaming and "
+                  "whole-file add" % what)
+            if lim:
+                check(r["largest_lsb"] <= 1
+                      and r["lsb_apart"] < 1e-3 * r["samples"],
+                      "streaming add, %s: %d of %d samples up to %g LSB "
+                      "from the whole-file add" % (
+                          what, r["lsb_apart"], r["samples"],
+                          r["largest_lsb"]))
+            else:
+                check(r["lsb_apart"] == 0, "streaming add, %s: %d samples "
+                      "differ from the whole-file add" % (what,
+                                                          r["lsb_apart"]))
+            fields["%ds_%s" % (secs, "limiter" if lim else "no_limiter")] = {
+                k: r[k] for k in ("lsb_apart", "largest_lsb", "samples",
+                                  "whole_s", "stream_s")}
+            if secs == 200 and lim:
+                marked = r
+    _, get_s, _ = cmp(port, key, marked["stream"], 5)
+    return dict(snr=info_line(marked["info_stream"], "SNR"),
+                data_blocks=info_line(marked["info_stream"], "Data Blocks"),
+                get_s=get_s, match_count=5, **fields)
 
 
 def same_scores(got, want, what):
@@ -683,7 +695,8 @@ def card_env():
 
 
 def phase_cli(d, smi):
-    """15. the port's command line in processes of its own, on the card."""
+    """15. the port's command line in processes of its own, on the card;
+    returns each process's wall s."""
     env = card_env()
     noise, wm = os.path.join(d, "cli_n.wav"), os.path.join(d, "cli_wm.wav")
     out_json = os.path.join(d, "cli.json")
@@ -719,6 +732,7 @@ def phase_cli(d, smi):
           + proc.stderr)
     phase("cli", match_count=5, json_matches=len(matches), card=smi,
           **seconds)
+    return seconds
 
 
 FLEET_STREAMS, FLEET_SECONDS, FLEET_TOP_K = 16, 60, 8
@@ -1544,14 +1558,78 @@ def raw_options_format(options):
                       opts.get("--raw-endian", "little"))
 
 
+def unknown_length_adds(d, n200, n60, piped):
+    """Phase 22's adds in this process: the unknown-length add of n60.raw
+    against the known-length add of n60.wav, and the same at 32 kHz, with
+    the limiter and without it; `piped` (limiter on / off -> the stdin
+    add's wav-pipe output) against the in-process add; and the probe.
+    Returns the phase's fields."""
+    from audiowmark_tpu_torch import tile_probe
+    from audiowmark_tpu_torch.io.wavdata import WavData
+    from audiowmark_tpu_torch.ops import frames
+    from audiowmark_tpu_torch.params import Params
+    fields = {}
+    # the same adds in this process, the tiles recorded, against the
+    # known-length streaming add of the WAV (--snr sends it there), and
+    # the same at 32 kHz (raw PCM against the WAV, both through the
+    # resampler pair): 0 samples apart without the limiter
+    n32 = tile_probe.fixture(d, 60, 32000)
+    for rate, wav in ((44100, n60), (32000, n32)):
+        for lim in (True, False):
+            r = tile_probe.unknown_vs_known(wav, rate, lim)
+            tag = "%dk_%s" % (rate // 1000,
+                              "limiter" if lim else "no_limiter")
+            fields[tag] = dict(
+                lsb_apart=r["lsb_apart"], largest_lsb=r["largest_lsb"],
+                unknown_add_s=r["unknown_s"], known_add_s=r["known_s"],
+                tiles=sorted(set(r["tiles"])), tile_count=len(r["tiles"]))
+            check(16 in r["tiles"] and 512 in r["tiles"],
+                  "the tiles did not ramp: %s" % sorted(set(r["tiles"])))
+            if lim:
+                check(r["largest_lsb"] <= 1
+                      and r["lsb_apart"] < 1e-3 * r["samples"],
+                      "unknown- vs known-length add (%s): %d samples, up to "
+                      "%g LSB" % (tag, r["lsb_apart"], r["largest_lsb"]))
+            else:
+                check(r["lsb_apart"] == 0, "unknown- vs known-length add "
+                      "(%s): %d samples differ" % (tag, r["lsb_apart"]))
+            if rate == 44100:
+                worst, n = samples_apart(wav_pipe_samples(piped[lim]),
+                                         WavData.load(r["unknown"]).samples,
+                                         tag)
+                check(worst <= 1, "the stdin add is %g LSB from the same "
+                      "add of the raw file" % worst)
+                fields[tag]["stdin_vs_file_lsb_apart"] = n
+
+    # the probe: the delta's stages on slices of T frames against one call
+    # on 4096 frames of the 200 s fixture; _delta_iffts launches one shape
+    # and must agree at every T
+    x, mods, awin = tile_probe.probe_input(n200, tile_probe.SIZES[-1],
+                                           "cuda")
+    table = tile_probe.stage_rows_apart(x, mods, Params.water_delta, awin)
+    del x, mods
+    check(not any(row["delta_iffts"] for row in table),
+          "_delta_iffts on slices differs from one call: %s" % table)
+    stages = ("rfft", "factor", "irfft")
+    fields["probe"] = dict(
+        delta_frames=frames.DELTA_FRAMES,
+        stages_apart=[name for name in stages
+                      if any(row[name] for row in table)],
+        stages_agree_from_frames=min(
+            row["frames"] for row in table
+            if not any(later[name] for later in table
+                       if later["frames"] >= row["frames"]
+                       for name in stages)),
+        table=table)
+    return fields
+
+
 def phase_streams(d, smi):
     """22. the shell's streams on the card.  Returns K1's launches over the
     phase's in-process gets (the format matrix and the wav-pipe cmp)."""
     from audiowmark_tpu_torch.fixtures import write_wav
     from audiowmark_tpu_torch.io.converters import RawConverter
     from audiowmark_tpu_torch.io.wavdata import WavData
-    from audiowmark_tpu_torch.models import embedder
-    from audiowmark_tpu_torch.ops.frames import FRAME
     from audiowmark_tpu_torch.params import Encoding
     t_phase = time.perf_counter()
     fields, seconds = {}, {}
@@ -1613,47 +1691,7 @@ def phase_streams(d, smi):
             f.write(out)
     seconds["stdin_add_s"] = time.perf_counter() - t0
 
-    # the same adds in this process, the tiles recorded, against the
-    # known-length streaming add of the WAV (--snr sends it there)
-    tiles, run = [], embedder.StreamingEmbedder.run
-
-    def recording(self, samples):
-        tiles.append(samples.size // self.n_channels // FRAME)
-        return run(self, samples)
-
-    for lim in (True, False):
-        opt = [] if lim else ["--test-no-limiter"]
-        unknown = os.path.join(d, "unknown_%d.wav" % lim)
-        known = os.path.join(d, "known_%d.wav" % lim)
-        embedder.StreamingEmbedder.run = recording
-        try:
-            del tiles[:]
-            rc, _, _, wall = run_cli(
-                ["--strict", "add", "--input-format", "raw", "--raw-rate",
-                 "44100"] + opt + [raw60, unknown, MSG])
-        finally:
-            embedder.StreamingEmbedder.run = run
-        check(rc == 0, "the unknown-length add of the raw file")
-        rc, _, _, known_s = run_cli(["--strict", "add", "--snr"] + opt
-                                    + [n60, known, MSG])
-        check(rc == 0, "the known-length streaming add")
-        tag = "limiter" if lim else "no_limiter"
-        worst, n, size = lsb_apart(unknown, known)
-        fields[tag] = dict(lsb_apart=n, largest_lsb=worst,
-                           exact=n == 0, unknown_add_s=wall,
-                           known_add_s=known_s)
-        check(worst <= 1 and n < 1e-3 * size,
-              "unknown- vs known-length add (%s): %d samples, up to %g "
-              "LSB" % (tag, n, worst))
-        worst, n = samples_apart(wav_pipe_samples(piped[lim]),
-                                 WavData.load(unknown).samples, tag)
-        check(worst <= 1, "the stdin add is %g LSB from the same add of the "
-              "raw file" % worst)
-        fields[tag]["stdin_vs_file_lsb_apart"] = n
-    fields["unknown_tiles"] = sorted(set(tiles))
-    fields["unknown_tile_count"] = len(tiles)
-    check(16 in tiles and 512 in tiles, "the tiles did not ramp: %s"
-          % sorted(set(tiles)))
+    fields.update(unknown_length_adds(d, n200, n60, piped))
 
     # wav-pipe to stdout, read back with cmp --input-format wav-pipe, and
     # every sample format through add and cmp, in this process
@@ -1715,6 +1753,8 @@ def phase_quality(d, smi):
     within 1e-3 dB, the marked files <= 1 LSB apart, the tool's checks."""
     from audiowmark_tpu_torch import quality_report as qr
     from audiowmark_tpu_torch.io.wavdata import WavData
+    from audiowmark_tpu_torch.tile_probe import (
+        samples_apart as samples_apart_files)
     t_phase = time.perf_counter()
     missing = qr.anchors_missing()
     fields, worst_db, apart = {}, 0.0, 0
@@ -1727,12 +1767,12 @@ def phase_quality(d, smi):
         cpu = qr.sweep(src, d, device="cpu", tag="_cpu")
         for (s, snr, nmr), (_, snr_c, nmr_c) in zip(card, cpu):
             worst_db = max(worst_db, abs(snr - snr_c), abs(nmr - nmr_c))
-            lsb, n, _ = lsb_apart(*(os.path.join(
+            r = samples_apart_files(*(os.path.join(
                 d, "q_%s_%s_s%d.wav" % (carrier, tag, s))
                 for tag in ("card", "cpu")))
-            check(lsb <= 1, "%s strength %d: card and CPU adds %g LSB "
-                  "apart" % (carrier, s, lsb))
-            apart += n
+            check(r["largest_lsb"] <= 1, "%s strength %d: card and CPU adds "
+                  "%g LSB apart" % (carrier, s, r["largest_lsb"]))
+            apart += r["lsb_apart"]
         anchors = None
         if not missing:
             orig = WavData.load(src)
@@ -1751,6 +1791,55 @@ def phase_quality(d, smi):
           mp3_anchors=("not run: %s does not load here" % missing
                        if missing else "run"),
           seconds=time.perf_counter() - t_phase, card=smi, **fields)
+
+
+def phase_ttfb(d, smi, cli_s):
+    """24. the reference's latency harness (ttfb.py) on the card: the 200 s
+    fixture as a WAV on stdin (a known length) and as raw PCM on stdin (the
+    unknown-length add's ramp); each output decodes to 5 matches.  Then the
+    in-process time from the call of add_stream_watermark on the 60 s raw
+    stream to its first write of samples.  Returns K1's launches over the
+    phase's gets."""
+    from audiowmark_tpu_torch import tile_probe, ttfb
+    from audiowmark_tpu_torch.io.converters import RawConverter
+    from audiowmark_tpu_torch.io.wavdata import WavData
+    t_phase = time.perf_counter()
+    n200 = os.path.join(d, "n200.wav")
+    raw200 = os.path.join(d, "n200.raw")
+    with open(raw200, "wb") as f:
+        f.write(RawConverter(raw_options_format(STREAM_RAW[0][1])).to_raw(
+            WavData.load(n200).samples))
+    fields, outs = {}, {}
+    for name, src, opts in (("wav", n200, []),
+                            ("raw", raw200, ["--input-format", "raw",
+                                             "--raw-rate", "44100"])):
+        outs[name] = os.path.join(d, "ttfb_%s.wav" % name)
+        with open(outs[name], "wb") as sink:
+            first, total, n = ttfb.measure(src, MSG, opts, sink=sink)
+        check(n == 44 + 200 * 44100 * 2 * 2, "ttfb.py (%s) counted %d bytes"
+              % (name, n))
+        fields[name] = dict(ttfb_s=first, total_s=total, bytes=n,
+                            mb_per_s=n / total / 1e6)
+
+    def gets():
+        counts = {}
+        for name, path in outs.items():
+            rc, out, _, wall = run_cli(["--strict", "cmp", "--input-format",
+                                        "wav-pipe", path, MSG])
+            check(rc == 0 and matches(out) == 5, "the marked stream of "
+                  "ttfb.py (%s): exit %d, match_count %s (not 5)"
+                  % (name, rc, matches(out)))
+            counts[name] = 5
+            fields[name]["get_s"] = wall
+        return counts
+
+    counts, launches = launches_of("the gets of phase 24", gets)
+    fields["first_write"] = tile_probe.first_writes(
+        os.path.join(d, "n60.raw"))
+    phase("ttfb", match_counts=counts, k1_launches=launches,
+          cli_process_s=cli_s, seconds=time.perf_counter() - t_phase,
+          card=smi, **fields)
+    return launches
 
 
 def main_path(port, key, d, n200, wm200, smi):
@@ -1779,8 +1868,8 @@ def main_path(port, key, d, n200, wm200, smi):
 
 
 def earlier_phases(port, key, d, smi, checks):
-    """5.-15.; returns K1's launches by path, the main path's K1 check and
-    the branch metrics' preparation time."""
+    """5.-15.; returns K1's launches by path, the main path's K1 check,
+    the branch metrics' preparation time and phase 15's process walls."""
     from audiowmark_tpu_torch.ops import viterbi
     # ---- 5.-7. the main path; K1's launch count starts at 0 here ----
     n200, wm200 = os.path.join(d, "n200.wav"), os.path.join(d, "wm.wav")
@@ -1815,9 +1904,9 @@ def earlier_phases(port, key, d, smi, checks):
     # ---- 14.-15. replay-speed detection, the command line ----
     paths["speed"], speed_check = phase_speed(port, key, d, smi)
     checks.append(speed_check)
-    phase_cli(d, smi)
+    cli_s = phase_cli(d, smi)
 
-    return paths, main_check, prep_ms
+    return paths, main_check, prep_ms, cli_s
 
 
 def main() -> int:
@@ -1889,10 +1978,12 @@ def main() -> int:
             gen_noise(key, os.path.join(d, "n%d.wav" % secs), secs, 44100)
         phase("fixtures", seconds=time.perf_counter() - t0)
 
-        paths = {}
-        if not new_only:
-            paths, main_check, prep_ms = earlier_phases(port, key, d, smi,
-                                                        checks)
+        if new_only:
+            paths = {"stream_add": phase_stream_add(port, key, d, smi)}
+            cli_s = None
+        else:
+            paths, main_check, prep_ms, cli_s = earlier_phases(
+                port, key, d, smi, checks)
             # ---- 16.-19. the fleet API, groups and prefetch, HLS, the
             # trace ----
             paths["fleet"], fleet_check, marked = phase_fleet(key, smi)
@@ -1907,9 +1998,12 @@ def main() -> int:
             paths["modes"] = phase_modes(port, d, smi, checks)
             paths["ber"] = phase_ber(d, smi)
 
-        # ---- 22.-23. the shell's streams, the strength sweep ----
+        # ---- 22.-24. the shell's streams, the strength sweep, the time
+        # to first byte ----
         paths["streams"] = phase_streams(d, smi)
-        phase_quality(d, smi)
+        if not new_only:
+            phase_quality(d, smi)
+        paths["ttfb"] = phase_ttfb(d, smi, cli_s)
 
     phase("total", seconds=time.perf_counter() - t_script, card=smi)
     if new_only:

@@ -2,7 +2,8 @@
 the streaming resampler, the 48 kHz streaming add, the staged search and
 a speed scan on the card vs the port on the CPU; the command line on the
 card; the fleet API (watermark_batch, detect_batch) card vs CPU and K1 at
-its batch of 256 rows.
+its batch of 256 rows; the add's delta of every tile size of the
+unknown-length add's ramp against one call on 4096 frames, bit for bit.
 
 Every test here needs the card and skips without one.  This file imports
 no jax and nothing of the JAX package, so it runs where jax is absent,
@@ -121,6 +122,28 @@ def test_add_core_on_card_matches_cpu():
     diff = np.abs(outs[0] - outs[1])
     assert diff.max() <= 1
     assert np.count_nonzero(diff) <= 3e-3 * diff.size
+
+
+@pytest.mark.parametrize("tile", [16, 32, 64, 128, 256, 512])
+def test_delta_of_every_ramp_tile_equals_the_4096_frame_batch(tile):
+    """_delta_iffts of consecutive tiles of each size of the unknown-length
+    add's ramp, bit for bit the same rows as one call on 4096 frames (laid
+    out as the add lays them out).  cuFFT's rows at batches of up to 1024
+    rows differ in the last bit from those at 2048 rows and more (H100,
+    tile_probe.py stages); _delta_iffts launches one batch shape."""
+    rng = np.random.RandomState(tile)
+    n, C = 4096, 2
+    x = torch.from_numpy(rng.uniform(-0.9, 0.9, n * frames.FRAME * C)
+                         .astype(np.float32)).cuda()
+    f = x.reshape(n, frames.FRAME, C).transpose(1, 2)
+    mods = torch.from_numpy(rng.randint(-1, 2, (n, frames.N_BINS))
+                            .astype(np.int8)).cuda()
+    awin = torch.from_numpy(frames.analysis_window()).cuda()
+    full = frames._delta_iffts(f, mods, Params.water_delta, awin)
+    tiles = torch.cat([frames._delta_iffts(
+        f[s:s + tile], mods[s:s + tile], Params.water_delta, awin)
+        for s in range(0, n, tile)])
+    assert torch.equal(tiles, full)
 
 
 def test_slice_on_card_matches_cpu(tmp_path):

@@ -282,7 +282,9 @@ def test_ast_walk_covers_the_new_modules():
                  "audiowmark_tpu_torch/hls/mpegts.py",
                  "audiowmark_tpu_torch/video.py",
                  "audiowmark_tpu_torch/ops/detect_fused.py",
-                 "audiowmark_tpu_torch/utils/prof.py"):
+                 "audiowmark_tpu_torch/utils/prof.py",
+                 "audiowmark_tpu_torch/ttfb.py",
+                 "audiowmark_tpu_torch/tile_probe.py"):
         assert want in rel, want
     with open(os.path.join(REPO, "videowmark-torch")) as f:
         script = f.read()
