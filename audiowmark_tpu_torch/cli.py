@@ -27,7 +27,7 @@ import numpy as np
 from . import __version__
 from .crypto.keys import Key
 from .crypto.prng import Random, Stream, gen_key as gen_key_hex
-from .codec.shortcode import short_code_supported
+from .codec.shortcode import short_code_init
 from .device import DeviceLike
 from .fixtures import gen_noise
 from .io.wavdata import WavData
@@ -232,7 +232,7 @@ def parse_shared_options(ap: ArgParser):
     i = ap.parse_opt_int("--short")
     if i is not None:
         Params.payload_size = i
-        if not short_code_supported(Params.payload_size):
+        if not short_code_init(Params.payload_size):
             _die("unsupported short payload size %d" % Params.payload_size)
         Params.payload_short = True
     i = ap.parse_opt_int("--frames-per-bit")

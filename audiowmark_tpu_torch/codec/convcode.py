@@ -38,6 +38,7 @@ AB_GENERATORS = (
     0o63543, 0o75307, 0o52547, 0o45627, 0o67657, 0o51757,
 )
 AB_RATE = len(AB_GENERATORS)
+STATE_MASK = STATE_COUNT - 1
 
 
 def get_block_type_generators(block_type: ConvBlockType) -> Tuple[int, ...]:
@@ -217,3 +218,10 @@ def conv_decode_soft_batch(block_type: ConvBlockType, coded_batch,
         raise ValueError("coded_batch must be (B, n_coded), got shape %s"
                          % (coded.shape,))
     return conv_decode_soft_mixed([(block_type, coded)], device)[0]
+
+
+def conv_decode_hard(block_type: ConvBlockType, coded_bits,
+                     device: DeviceLike = None) -> np.ndarray:
+    """Viterbi decode of hard 0/1 coded bits: the soft decoder on them."""
+    return conv_decode_soft(block_type, np.asarray(coded_bits, np.float32),
+                            device=device)

@@ -11,9 +11,10 @@ import numpy as np
 from ..params import Params
 
 from ..device import DeviceLike
-from .convcode import (ConvBlockType, conv_code_size, conv_decode_soft_batch,
-                       conv_encode)
-from .shortcode import short_code_size, short_decode_blk, short_encode
+from .convcode import (ConvBlockType, conv_code_size, conv_decode_soft,
+                       conv_decode_soft_batch, conv_encode)
+from .shortcode import (short_code_size, short_decode_blk, short_decode_soft,
+                        short_encode)
 
 
 def code_encode(block_type: ConvBlockType, in_bits) -> np.ndarray:
@@ -26,6 +27,16 @@ def code_size(block_type: ConvBlockType, msg_size: int) -> int:
     if Params.payload_short:
         return short_code_size(block_type, msg_size)
     return conv_code_size(block_type, msg_size)
+
+
+def code_decode_soft(block_type: ConvBlockType, coded_bits,
+                     return_error: bool = False, device: DeviceLike = None):
+    """Soft decode of one coded row with the payload's code: the bits
+    (empty where a short code finds no codeword), and the error where
+    `return_error` asks for it."""
+    if Params.payload_short:
+        return short_decode_soft(block_type, coded_bits, return_error, device)
+    return conv_decode_soft(block_type, coded_bits, return_error, device)
 
 
 def code_decode_soft_batch(block_type: ConvBlockType, coded_batch,

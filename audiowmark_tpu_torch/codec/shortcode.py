@@ -4,8 +4,10 @@ Port of audiowmark_tpu/codec/shortcode.py: BKLC(GF(2), N, K) generator
 matrices; encode = GF(2) matmul then conv_encode of the codeword; decode =
 Viterbi (ops/viterbi.py through codec/convcode.py) then an exhaustive
 codeword match, returning an empty array when nothing matches exactly.
-The generator for a payload of k bits is picked by k
-(Params.payload_size), so the module holds no selected-matrix state.
+The generator is picked by the length of what it encodes or decodes (k
+message bits, or the N bits of a codeword: 56, 61 and 65 are distinct),
+so the module holds no selected-matrix state and `short_code_init` only
+checks k.
 """
 
 from __future__ import annotations
@@ -14,8 +16,6 @@ from functools import lru_cache
 from typing import Dict, List
 
 import numpy as np
-
-from ..params import Params
 
 from ..device import DeviceLike
 from .convcode import (ConvBlockType, conv_code_size, conv_decode_soft,
@@ -69,9 +69,15 @@ def _matrix(k: int) -> np.ndarray:
     return mat
 
 
-def short_code_supported(k: int) -> bool:
-    """Whether there is a generator matrix for payload size k."""
-    return k in _MATRICES
+# codeword length N -> message length k
+_K_OF_N = {mat.shape[1]: k for k, mat in _MATRICES.items()}
+
+
+def short_code_init(k: int) -> int:
+    """The codeword length N of payload size k, 0 where there is no
+    generator matrix for k."""
+    mat = _MATRICES.get(k)
+    return 0 if mat is None else mat.shape[1]
 
 
 def short_code_output_size(k: int) -> int:
@@ -112,10 +118,13 @@ def _codeword_table(k: int):
 
 def short_decode_blk(coded_bits) -> np.ndarray:
     """Exhaustive exact-match decode; empty array when no codeword matches."""
-    coded = np.asarray(coded_bits, dtype=np.uint8)
-    msgs, codewords = _codeword_table(Params.payload_size)
-    n = codewords.shape[1]
-    match = np.all(codewords == coded[None, :n], axis=1)
+    coded = np.asarray(coded_bits, dtype=np.uint8).reshape(-1)
+    k = _K_OF_N.get(coded.size)
+    if k is None:
+        raise ValueError("%d bits are no short codeword (N = %s)"
+                         % (coded.size, sorted(_K_OF_N)))
+    msgs, codewords = _codeword_table(k)
+    match = np.all(codewords == coded[None, :], axis=1)
     idx = np.nonzero(match)[0]
     if idx.size == 0:
         return np.empty(0, dtype=np.int32)

@@ -114,10 +114,11 @@ def gen_noise(key: Key, out_file: str, seconds: float, rate: int,
     WavData(noise, channels, rate, bits).save(out_file)
 
 
-def long_noise(seed: int, out_file: str, seconds: float, rate: int):
-    """16-bit stereo noise, uniform in [-1, 1), from
+def long_noise(seed: int, out_file: str, seconds: float, rate: int,
+               channels: int = 2):
+    """16-bit noise of `channels` channels, uniform in [-1, 1), from
     np.random.default_rng(seed), written as a wav file."""
-    n = int(rate * seconds) * 2
+    n = int(rate * seconds) * channels
     rng = np.random.default_rng(seed)
     noise = rng.random(n, dtype=np.float32) * np.float32(2) - np.float32(1)
-    WavData(noise, 2, rate, 16).save(out_file)
+    WavData(noise, channels, rate, 16).save(out_file)

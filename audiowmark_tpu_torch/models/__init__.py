@@ -1,0 +1,1 @@
+from .embedder import add_watermark, add_stream_watermark  # noqa: F401

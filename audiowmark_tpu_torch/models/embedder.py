@@ -91,13 +91,11 @@ class StreamingEmbedder:
         assert n_frames * FRAME * self.n_channels == samples44.shape[0]
         if n_frames == 0:
             return samples44.new_zeros(0)
-        dev = tables_to_device(self.tables, self.device)
         frames = samples44.reshape(n_frames, FRAME, self.n_channels) \
             .transpose(1, 2)
         out, self.prev1, self.prev2 = embed_delta_frames(
-            frames, self.frame_mods(n_frames), self.water_delta,
-            dev["analysis_window"], dev["synthesis_window"], self.prev1,
-            self.prev2)
+            frames, self.frame_mods(n_frames), self.water_delta, self.prev1,
+            self.prev2, self.device)
         t = np.arange(n_frames)
         hit = (self.frame_number + t + 1) % self.frames_per_block == 0
         if self.count_cap is not None:

@@ -189,3 +189,6 @@ class ResultSet:
                           if p.bit_vec == list(orig_bits))
         print("match_count %d %d" % (match_count, len(self.patterns)))
         return match_count
+
+    def best_quality(self) -> float:
+        return max((p.sync_quality for p in self.patterns), default=-1.0)

@@ -38,8 +38,8 @@ from ..crypto.keys import Key
 from ..device import DeviceLike, resolve
 from ..params import Params
 from ..tables import get_key_tables, tables_to_device
-from .extract import block_raw, db_bands
-from .frames import FRAME
+from .extract import block_raw
+from .frames import FRAME, db_bands
 from .search_fused import candidate_eligibility
 from .sync import (HOP, SHIFTS, device_sync_bits, local_mean,
                    pad_channels_first, refine_grid_scores, sync_scores)

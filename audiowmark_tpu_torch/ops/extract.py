@@ -15,20 +15,10 @@ import torch
 from ..params import Params
 
 from ..tables import KeyTables, tables_to_device
-from .frames import FRAME, MIN_DB, _LOG2_DB
+from .frames import FRAME, db_bands
 
 # candidates per pass: bounds the (cands, count, C, FRAME) window stack
 _BATCH = 4
-
-
-def db_bands(windows: torch.Tensor, awin: torch.Tensor) -> torch.Tensor:
-    """(..., FRAME) samples -> (..., N_BANDS) dB of the windowed rfft over
-    bands [min_band, max_band]; -96 dB where the power is 0."""
-    spec = torch.fft.rfft(windows * awin, dim=-1)
-    spec = spec[..., Params.min_band:Params.max_band + 1]
-    abs2 = spec.real ** 2 + spec.imag ** 2
-    return torch.where(abs2 > 0, torch.log2(abs2) * _LOG2_DB,
-                       torch.full_like(abs2, MIN_DB))
 
 
 def layout(tables: KeyTables, device):

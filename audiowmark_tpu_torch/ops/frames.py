@@ -26,6 +26,9 @@ import torch
 
 from ..params import Params
 
+from ..device import DeviceLike, resolve
+from .limiter import limit_blocks
+
 FRAME = Params.frame_size
 N_BINS = FRAME // 2 + 1
 MIN_DB = -96.0
@@ -65,29 +68,6 @@ def synthesis_window() -> np.ndarray:
 
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=like.device)
-
-
-def limiter_apply(mixed: torch.Tensor, ceiling: torch.Tensor,
-                  block_size: int, n_channels: int) -> torch.Tensor:
-    """Whole-signal look-ahead limiter over interleaved samples: per block b
-    the gain ramps from ceiling/max(M[b-1], M[b]) to ceiling/max(M[b],
-    M[b+1]), M[b] = max(|x| over block b, ceiling) (src/limiter.cc)."""
-    vpb = block_size * n_channels
-    n = mixed.shape[0]
-    n_blocks = -(-n // vpb)
-    mb = torch.cat([mixed, mixed.new_zeros(n_blocks * vpb - n)])
-    xb = mb.reshape(n_blocks, vpb)
-    maxes = torch.maximum(torch.amax(torch.abs(xb), dim=1), ceiling)
-    prev = torch.cat([ceiling[None], maxes[:-1]])
-    nxt = torch.cat([maxes[1:], ceiling[None]])
-    s0 = ceiling / torch.maximum(prev, maxes)
-    s1 = ceiling / torch.maximum(maxes, nxt)
-    step = (s1 - s0) / block_size
-    i = torch.arange(block_size, dtype=torch.float32, device=mixed.device)
-    scale = s0[:, None] + i[None, :] * step[:, None]
-    out = (xb.reshape(n_blocks, block_size, n_channels)
-           * scale[:, :, None]).reshape(-1)
-    return out[:n]
 
 
 def _spectrum(frames: torch.Tensor, awin: torch.Tensor) -> torch.Tensor:
@@ -139,11 +119,25 @@ def _delta_iffts(frames: torch.Tensor, mods: torch.Tensor,
     return out[:n]
 
 
-def embed_delta_frames(frames: torch.Tensor, mods: torch.Tensor,
-                       water_delta: float, awin: torch.Tensor,
-                       swin: torch.Tensor, prev1=None, prev2=None):
+def window_tensors(device: torch.device):
+    """The analysis and synthesis windows as tensors on `device`, made
+    once per device; callers must not write to them."""
+    hit = _window_tensors.get(device)
+    if hit is None:
+        hit = (torch.from_numpy(analysis_window()).to(device),
+               torch.from_numpy(synthesis_window()).to(device))
+        _window_tensors[device] = hit
+    return hit
+
+
+_window_tensors = {}
+
+
+def embed_delta_frames(frames, mods, water_delta: float, prev1=None,
+                       prev2=None, device: DeviceLike = None):
     """Streaming delta overlap-add for a tile of frames k0..k0+T-1
-    (audiowmark_tpu ops/frames._embed_delta_core).
+    (audiowmark_tpu ops/frames.embed_delta_frames), on `device` (default:
+    the CUDA card); numpy or tensors in, tensors out.
 
     frames: (T, C, FRAME) float32, deinterleaved input frames;
     mods: (T, N_BINS) int8; prev1/prev2: (C, FRAME) iffts of frames k0-1
@@ -152,11 +146,15 @@ def embed_delta_frames(frames: torch.Tensor, mods: torch.Tensor,
     frame (the synth's one-frame latency):
         out[j] = W0*D[j+1] + W1*D[j] + W2*D[j-1]
     Returns (out (T, C, FRAME), new prev1, new prev2)."""
+    dev = resolve(device)
+    frames = torch.as_tensor(frames, dtype=torch.float32, device=dev)
+    mods = torch.as_tensor(mods, device=dev)
+    awin, swin = window_tensors(dev)
     C = frames.shape[1]
-    if prev1 is None:
-        prev1 = frames.new_zeros((C, FRAME))
-    if prev2 is None:
-        prev2 = frames.new_zeros((C, FRAME))
+    prev1 = frames.new_zeros((C, FRAME)) if prev1 is None \
+        else torch.as_tensor(prev1, device=dev)
+    prev2 = frames.new_zeros((C, FRAME)) if prev2 is None \
+        else torch.as_tensor(prev2, device=dev)
     iffts = _delta_iffts(frames, mods, water_delta, awin)
     ext = torch.cat([prev2[None], prev1[None], iffts], dim=0)
     out = ext[2:] * swin[:FRAME] + ext[1:-1] * swin[FRAME:2 * FRAME] \
@@ -194,8 +192,8 @@ def add_file_core(x: torch.Tensor, mods: torch.Tensor, water_delta: float,
 
     mixed = x + delta.transpose(1, 2).reshape(-1)
     if not no_limiter:
-        mixed = limiter_apply(mixed, _f32(ceiling, x), block_size,
-                              n_channels)
+        mixed = limit_blocks(mixed, _f32(ceiling, x), block_size,
+                             n_channels)
 
     mixed = mixed[:n_out]
     if not out_i16:
@@ -210,3 +208,24 @@ def add_file_core(x: torch.Tensor, mods: torch.Tensor, water_delta: float,
                     torch.full_like(snorm, -2147483648, dtype=torch.int32),
                     torch.trunc(snorm).to(torch.int32)))
     return (i32 >> 16).to(torch.int16)
+
+
+
+def db_bands(windows: torch.Tensor, awin: torch.Tensor) -> torch.Tensor:
+    """(..., FRAME) samples -> (..., N_BANDS) dB of the windowed rfft over
+    bands [min_band, max_band]; -96 dB where the power is 0."""
+    spec = torch.fft.rfft(windows * awin, dim=-1)
+    spec = spec[..., Params.min_band:Params.max_band + 1]
+    abs2 = spec.real ** 2 + spec.imag ** 2
+    return torch.where(abs2 > 0, torch.log2(abs2) * _LOG2_DB,
+                       torch.full_like(abs2, MIN_DB))
+
+
+def db_spectrogram(frames, device: DeviceLike = None) -> torch.Tensor:
+    """(T, C, FRAME) frames -> (T, N_BANDS) dB spectrogram over bands
+    [min_band, max_band], summed over the channels, on `device` (default:
+    the CUDA card)."""
+    dev = resolve(device)
+    frames = torch.as_tensor(frames, dtype=torch.float32, device=dev)
+    return torch.sum(db_bands(frames, window_tensors(dev)[0]), dim=1)
+

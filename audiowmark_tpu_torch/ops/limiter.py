@@ -1,15 +1,66 @@
-"""Block-wise look-ahead soft limiter with the reference's streaming state.
+"""Block-wise look-ahead soft limiter.
 
-Port of audiowmark_tpu/ops/limiter.py's StreamingLimiter (host numpy; the
-whole-file limiter of the add path lives in ops/frames.limiter_apply).
-Reference behavior (src/limiter.cc): 1-second blocks; per block b the scale
-ramps linearly from ceiling/max(M[b-1], M[b]) to ceiling/max(M[b], M[b+1]),
-where M[b] = max(|x| over block b, ceiling); one block of latency.
+Port of audiowmark_tpu/ops/limiter.py.  Reference behavior
+(src/limiter.cc): 1-second blocks; per block b the scale ramps linearly
+from ceiling/max(M[b-1], M[b]) to ceiling/max(M[b], M[b+1]), where
+M[b] = max(|x| over block b, ceiling); one block of latency.
+
+`limit_blocks` is the whole-signal form on the device (the whole-file
+add's), `limiter_apply` the JAX package's host interface to it, and
+`StreamingLimiter` carries the reference's exact block state on the host
+for the streaming add.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve
+
+
+def limit_blocks(mixed: torch.Tensor, ceiling: torch.Tensor,
+                 block_size: int, n_channels: int) -> torch.Tensor:
+    """Whole-signal look-ahead limiter over interleaved samples (f32, any
+    length; the last block is zero-padded and the padding cut off), with
+    `ceiling` a 0-d f32 tensor on their device."""
+    vpb = block_size * n_channels
+    n = mixed.shape[0]
+    n_blocks = -(-n // vpb)
+    mb = torch.cat([mixed, mixed.new_zeros(n_blocks * vpb - n)])
+    xb = mb.reshape(n_blocks, vpb)
+    maxes = torch.maximum(torch.amax(torch.abs(xb), dim=1), ceiling)
+    prev = torch.cat([ceiling[None], maxes[:-1]])
+    nxt = torch.cat([maxes[1:], ceiling[None]])
+    s0 = ceiling / torch.maximum(prev, maxes)
+    s1 = ceiling / torch.maximum(maxes, nxt)
+    # the gain ramp as the JAX package's jitted limiter rounds it: XLA
+    # divides by the constant block size as a multiply by its float32
+    # reciprocal, and fuses s0 + i*step into one multiply-add, rounded
+    # once (i*step is exact in float64)
+    step = (s1 - s0) * (torch.ones((), device=mixed.device) / block_size)
+    i = torch.arange(block_size, dtype=torch.float64, device=mixed.device)
+    scale = (s0.double()[:, None] + i[None, :] * step.double()[:, None]) \
+        .float()
+    out = (xb.reshape(n_blocks, block_size, n_channels)
+           * scale[:, :, None]).reshape(-1)
+    return out[:n]
+
+
+def limiter_apply(samples: np.ndarray, n_channels: int, sample_rate: int,
+                  block_size_ms: float = 1000, ceiling: float = 0.99,
+                  device: DeviceLike = None) -> np.ndarray:
+    """Whole-signal limiter of interleaved host samples, computed on
+    `device` (default: the CUDA card); the same output as the streamed
+    reference, whose trailing zero padding pushes the last partial block
+    through."""
+    dev = resolve(device)
+    x = torch.as_tensor(np.asarray(samples, np.float32).reshape(-1),
+                        device=dev)
+    block_size = sample_rate * int(block_size_ms) // 1000
+    return limit_blocks(x, torch.tensor(ceiling, dtype=torch.float32,
+                                        device=dev),
+                        block_size, n_channels).cpu().numpy()
 
 
 class StreamingLimiter:

@@ -30,8 +30,8 @@ from ..params import Params
 
 from ..device import DeviceLike, resolve
 from ..tables import KeyTables, tables_to_device
-from .extract import block_raw, db_bands, layout
-from .frames import FRAME
+from .extract import block_raw, layout
+from .frames import FRAME, db_bands
 from .sync import (HOP, SHIFTS, device_sync_bits, local_mean,
                    pad_channels_first, refine_grid_scores, shift,
                    silence_mask, sync_scores)

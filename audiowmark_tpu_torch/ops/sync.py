@@ -22,8 +22,7 @@ from ..params import Params
 
 from ..device import DeviceLike
 from ..tables import KeyTables, tables_to_device
-from .extract import db_bands
-from .frames import FRAME, analysis_window
+from .frames import FRAME, db_bands, window_tensors
 
 N_BANDS = Params.max_band - Params.min_band + 1
 HOP = Params.sync_search_step  # 256
@@ -180,7 +179,7 @@ def hop_spectrogram(x: torch.Tensor, n_channels: int,
     if n_taus == 0:
         return x.new_zeros((0, N_BANDS)), have
 
-    awin = torch.from_numpy(analysis_window()).to(x.device)
+    awin = window_tensors(x.device)[0]
     windows = x.reshape(n, n_channels).T.unfold(1, FRAME, HOP)
     S = torch.cat([torch.sum(db_bands(windows[:, t0:min(t0 + _SPEC_TILE,
                                                          n_taus)], awin),
@@ -323,7 +322,7 @@ def refine_grid(x: torch.Tensor, n_channels: int, bases: np.ndarray,
     if K == 0:
         return (np.zeros((0, N_REFINE), np.int64),
                 np.zeros((0, N_REFINE), np.float32))
-    awin = torch.from_numpy(analysis_window()).to(x.device)
+    awin = window_tensors(x.device)[0]
     pos, quals, valid = refine_grid_scores(
         pad_channels_first(x, n_channels),
         torch.from_numpy(bases.astype(np.int64)).to(x.device),

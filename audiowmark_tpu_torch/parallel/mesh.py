@@ -25,8 +25,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve, spread
-from ..ops.frames import (FRAME, _delta_iffts, analysis_window,
-                          synthesis_window)
+from ..ops.frames import FRAME, _delta_iffts, window_tensors
 
 
 @dataclass
@@ -84,12 +83,13 @@ def _embed_shard(frames: torch.Tensor, iffts: torch.Tensor,
                      + prv * swin[2 * FRAME:])
 
 
-def batch_embed_sharded(mesh: Mesh, frames: torch.Tensor,
-                        mods: torch.Tensor,
+def batch_embed_sharded(mesh: Mesh, samples, mods,
                         water_delta: float) -> torch.Tensor:
-    """dp/sp-sharded batch embed: frames (B, T, C, FRAME) f32 and mods
-    (B, T, N_BINS) int8 (on any device) -> the watermarked frames, same
-    shape, on the mesh's first device.  B divides over dp and T over sp."""
+    """dp/sp-sharded batch embed: frames `samples` (B, T, C, FRAME) f32 and
+    mods (B, T, N_BINS) int8 (numpy, or tensors on any device) -> the
+    watermarked frames, same shape, on the mesh's first device.  B divides
+    over dp and T over sp."""
+    frames, mods = torch.as_tensor(samples), torch.as_tensor(mods)
     dp, sp = mesh.shape
     B, T, C, _ = frames.shape
     if B % dp or T % sp:
@@ -106,7 +106,7 @@ def batch_embed_sharded(mesh: Mesh, frames: torch.Tensor,
                 dev, non_blocking=True)
             m = mods[i * b:(i + 1) * b, j * t:(j + 1) * t].to(
                 dev, non_blocking=True)
-            awin = torch.from_numpy(analysis_window()).to(dev)
+            awin = window_tensors(dev)[0]
             iffts = _delta_iffts(f.reshape(b * t, C, FRAME),
                                  m.reshape(b * t, -1), water_delta,
                                  awin).reshape(b, t, C, FRAME)
@@ -124,7 +124,7 @@ def batch_embed_sharded(mesh: Mesh, frames: torch.Tensor,
                 if j > 0 else zero
             left = shards[i, j + 1][1][:, 0].to(iffts.device) \
                 if j < sp - 1 else zero
-            swin = torch.from_numpy(synthesis_window()).to(iffts.device)
+            swin = window_tensors(iffts.device)[1]
             row.append(_embed_shard(f, iffts, right, left, swin).to(out_dev))
         rows.append(torch.cat(row, dim=1))
     return torch.cat(rows, dim=0)

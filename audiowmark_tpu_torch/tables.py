@@ -175,8 +175,15 @@ def tables_to_device(tables: KeyTables,
     return hit[1]
 
 
+def clear_cache():
+    """Forget every key's tables and their device copies: the next
+    get_key_tables builds them again."""
+    _cache.clear()
+    _device_cache.clear()
+
+
 def _upload(tables: KeyTables, dev: torch.device) -> Dict[str, torch.Tensor]:
-    from .ops.frames import analysis_window, synthesis_window
+    from .ops.frames import window_tensors
     from .ops.sync import build_sync_bits
 
     host = {name: getattr(tables, name) for name in TABLE_FIELDS}
@@ -184,7 +191,7 @@ def _upload(tables: KeyTables, dev: torch.device) -> Dict[str, torch.Tensor]:
         sb = build_sync_bits(tables, clip)
         host["sync_frame_" + mode] = sb.frame
         host["sync_v_" + mode] = sb.v
-    host["analysis_window"] = analysis_window()
-    host["synthesis_window"] = synthesis_window()
-    return {name: torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
-            for name, arr in host.items()}
+    out = {name: torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+           for name, arr in host.items()}
+    out["analysis_window"], out["synthesis_window"] = window_tensors(dev)
+    return out

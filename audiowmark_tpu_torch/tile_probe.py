@@ -110,14 +110,14 @@ def probe_input(wav: str, n_frames: int, device) -> tuple:
     first frames, and the analysis window, on `device`."""
     from .models.common import parse_payload
     from .models.embedder import StreamingEmbedder
-    from .ops.frames import FRAME, analysis_window
+    from .ops.frames import FRAME, window_tensors
     w = WavData.load(wav)
     x = torch.from_numpy(w.samples[:n_frames * FRAME * w.n_channels]) \
         .to(device)
     frames = x.reshape(n_frames, FRAME, w.n_channels).transpose(1, 2)
     emb = StreamingEmbedder(Key(), w.n_channels, w.sample_rate,
                             parse_payload(MSG), device)
-    awin = torch.from_numpy(analysis_window()).to(device)
+    awin = window_tensors(torch.device(device))[0]
     return frames, emb.frame_mods(n_frames), awin
 
 

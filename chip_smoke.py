@@ -149,24 +149,43 @@ get_watermark as `cmp` — on deterministic 16-bit stereo noise at 44.1 kHz
      MB/s beside phase 15's process walls, every byte counted, each output
      decoded by cmp -> 5; and in this process the time from the call of
      add_stream_watermark on phase 22's 60 s raw file to its first write of
-     samples, with the limiter and without it, first and warm.
+     samples, with the limiter and without it, first and warm;
+ 25. channels: other channel counts and rates (CHANNEL_FILES: mono 200 s
+     at 44.1 kHz, 6 channels 60 s at 48 kHz, stereo 60 s at 22.05 and at
+     96 kHz, seeded noise).  For each file: without the limiter the
+     known-length add (whole-file at 44.1 kHz, 4096-frame tiles
+     otherwise), at 44.1 kHz also the streaming known-length add (--snr),
+     and the unknown-length add of its raw PCM (tiles 16 -> 512 frames),
+     0 samples apart (on mono, cuFFT's rows at 1024 per call); with the
+     limiter the card's add <= 1 LSB from the CPU's on < 3e-3 of the
+     samples (phase 4's rule), cmp of it on the card and on the CPU with
+     the same match count (at least 1); and on the file's first 30 s at
+     the reduced geometry of phase 20 the card's report against the CPU's
+     (phase 20's rule).  Then watermark_batch and detect_batch on 4 mono
+     and 4 six-channel streams of 60 s: the message in every stream's best
+     eligible slot; and the JAX package's API functions of the port on the
+     card against the CPU: conv_decode_hard and code_decode_soft (128 bits
+     and --short 12) bits and errors exact, candidate_eligibility on
+     exact-tie plateaus equal to the CPU's and to the host's
+     _select_local_maxima.
 
 Phase 16 also runs detect_batch with the branch metrics in one buffer
 (ViterbiDecoder.forward) and in their former list and torch.cat: the
 metrics equal bit for bit, and the peak memory of each.
 
-Every phase 9-24 prints one line (20 and 21 one more per mode and row).
-Each path (the main path of phases 5-7; the 32 kHz add and get, the 48 kHz
-get, the streaming add and its get, the --test-no-sync get, the 32-min add
-and get, the speed gets, the fleet calls, the gets of phase 17, the HLS
-get, the modes' adds and gets at production geometry, the BER rows, the
-in-process gets of phase 22, the gets of phase 24) has
+Every phase 9-25 prints one line (20, 21 and 25 one more per mode, row and
+file).  Each path (the main path of phases 5-7; the 32 kHz add and get,
+the 48 kHz get, the streaming add and its get, the --test-no-sync get, the
+32-min add and get, the speed gets, the fleet calls, the gets of phase 17,
+the HLS get, the modes' adds and gets at production geometry, the BER
+rows, the in-process gets of phase 22, the gets of phase 24, everything
+phase 25 runs on the card) has
 K1's launch count reset to 0 just before it and read just after: each must
 be above 0.  The kernels line gives their sum as `launches` and each of
 them in `launches_by_path`.
 
 `python3 chip_smoke.py --new-only` runs phases 1, 2 (and the small check
-of 4), 10, 22 and 24 alone; it prints no kernels line.
+of 4) and 25 alone; it prints no kernels line.
 
 Any failed check raises: the script exits non-zero and prints no result.
 Without a CUDA device it exits 1 before any work.  On success the line
@@ -1842,6 +1861,300 @@ def phase_ttfb(d, smi, cli_s):
     return launches
 
 
+# phase 25's files: (channels, rate, seconds), seeded noise at full scale
+CHANNEL_FILES = [(1, 44100, 200), (6, 48000, 60), (2, 22050, 60),
+                 (2, 96000, 60)]
+# seconds of each file marked and read at the reduced geometry (card vs CPU)
+CHANNEL_REDUCED_SECONDS = 30
+# phase 25's fleet streams: (channels, streams)
+CHANNEL_FLEET = [(1, 4), (6, 4)]
+
+
+def add_on(device, src, dst, raw=None, **params):
+    """The port's add of `src` on `device` (None: the card) under `params`;
+    raw=(channels, rate): `src` is 16-bit raw PCM of unknown length.
+    Returns (wall s, its informational output)."""
+    from audiowmark_tpu_torch.crypto.keys import Key
+    from audiowmark_tpu_torch.models.embedder import add_watermark
+    from audiowmark_tpu_torch.params import Format, Params
+    set_params(**params)
+    if raw:
+        Params.input_format = Format.RAW
+        Params.raw_input_format.set_channels(raw[0])
+        Params.raw_input_format.set_sample_rate(raw[1])
+    info = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(info):
+        rc = add_watermark(Key(), src, dst, MSG, device)
+    if device is None:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    set_params()
+    check(rc == 0, "add of %s on %s" % (src, device or "the card"))
+    return wall, info.getvalue()
+
+
+def get_on(device, path, **params):
+    """The port's cmp of `path` on `device` (None: the card): (exit code,
+    stdout, wall s)."""
+    from audiowmark_tpu_torch.crypto.keys import Key
+    from audiowmark_tpu_torch.models.getter import get_watermark
+    set_params(**params)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = get_watermark([Key()], path, MSG, device)
+    if device is None:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    set_params()
+    return rc, out.getvalue(), wall
+
+
+def cpu_job(kind, src, dst, raw, params):
+    """One of phase 25's CPU runs, in a worker process of its own: "add"
+    (the port's add of `src` into `dst` on the CPU) or "get" (its cmp of
+    `src`).  Returns (wall s, the add's informational output) or (exit
+    code, stdout, wall s)."""
+    torch.set_num_threads(2)
+    if kind == "add":
+        return add_on("cpu", src, dst, raw, **params)
+    return get_on("cpu", src, **params)
+
+
+def channel_card(d, channels, rate, seconds):
+    """25. one file's runs on the card: its adds 0 samples apart without
+    the limiter, the add and cmp of the file and of its first seconds at
+    the reduced geometry.  Returns (the file's fields, its CPU runs as
+    {name: cpu_job's arguments}, the card's results they are held to)."""
+    from audiowmark_tpu_torch.fixtures import long_noise, raw_format
+    from audiowmark_tpu_torch.io.converters import RawConverter
+    from audiowmark_tpu_torch.io.wavdata import WavData
+    tag = "%dch_%d" % (channels, rate)
+    wav = os.path.join(d, "ch_%s.wav" % tag)
+    long_noise(channels * 1000 + rate // 1000, wav, seconds, rate, channels)
+    samples = WavData.load(wav).samples
+    raw = wav[:-4] + ".raw"
+    with open(raw, "wb") as f:
+        f.write(RawConverter(raw_format("signed", 16)).to_raw(samples))
+    fmt = (channels, rate)
+    r = dict(channels=channels, rate=rate, seconds=seconds,
+             samples=int(samples.size))
+
+    # without the limiter: the known-length add (whole-file at 44.1 kHz,
+    # 4096-frame tiles otherwise), at 44.1 kHz also the streaming
+    # known-length add (--snr), and the unknown-length add of the raw PCM
+    # (its tiles ramp 16 -> 512 frames): 0 samples apart
+    outs = {}
+    adds = [("known", wav, None, {})]
+    if rate == 44100:
+        adds.append(("stream", wav, None, dict(snr=True)))
+    adds.append(("unknown", raw, fmt, {}))
+    for name, src, raw_fmt, extra in adds:
+        outs[name] = os.path.join(d, "ch_%s_%s.wav" % (tag, name))
+        r[name + "_add_s"], _ = add_on(None, src, outs[name], raw_fmt,
+                                       test_no_limiter=True, **extra)
+    known = WavData.load(outs["known"]).samples
+    for name in outs:
+        if name != "known":
+            _, n = samples_apart(WavData.load(outs[name]).samples, known,
+                                 tag + " " + name)
+            r[name + "_vs_known_apart"] = n
+            check(n == 0, "%s: the %s add is %d samples from the "
+                  "known-length add without the limiter" % (tag, name, n))
+
+    # with the limiter: the add of the file (the user's add) and the
+    # unknown-length add of its raw PCM, which the CPU repeats (a
+    # known-length add at another rate pads its last tile to 4096 frames,
+    # minutes of audio through the CPU's resampler), and cmp
+    marked = os.path.join(d, "ch_%s_marked.wav" % tag)
+    r["add_s"], info = add_on(None, wav, marked)
+    r["data_blocks"] = info_line(info, "Data Blocks")
+    unknown = os.path.join(d, "ch_%s_unknown_lim.wav" % tag)
+    add_on(None, raw, unknown, fmt)
+    rc, text, r["get_s"] = get_on(None, marked)
+    r["match_count"] = matches(text)
+    check(rc == 0 and r["match_count"] >= 1, "%s: cmp on the card: exit "
+          "%d:\n%s" % (tag, rc, text))
+
+    # the reduced geometry on the file's first seconds
+    head = os.path.join(d, "ch_%s_head.wav" % tag)
+    WavData(samples[:CHANNEL_REDUCED_SECONDS * rate * channels], channels,
+            rate, 16).save(head)
+    head_marked = os.path.join(d, "ch_%s_head_marked.wav" % tag)
+    add_on(None, head, head_marked, **REDUCED)
+    card = get_on(None, head_marked, **REDUCED)
+    r["reduced_get_s"], r["reduced_match_count"] = card[2], matches(card[1])
+
+    cpu_unknown = os.path.join(d, "ch_%s_cpu.wav" % tag)
+    jobs = {"add": ("add", raw, cpu_unknown, fmt, {}),
+            "get": ("get", marked, None, None, {}),
+            "reduced_get": ("get", head_marked, None, None, REDUCED)}
+    return r, jobs, dict(unknown=unknown, cpu_unknown=cpu_unknown,
+                         get=(rc, text), reduced_get=card[:2])
+
+
+def channel_cpu_checks(tag, r, card, cpu):
+    """25. the CPU's runs of one file against the card's: the add <= 1 LSB
+    apart on < 3e-3 of the samples (phase 4's rule), the same exit code
+    and match count of cmp, and at the reduced geometry the same report
+    (phase 20's rule)."""
+    from audiowmark_tpu_torch.io.wavdata import WavData
+    r["cpu_add_s"] = cpu["add"][0]
+    worst, n = samples_apart(WavData.load(card["unknown"]).samples,
+                             WavData.load(card["cpu_unknown"]).samples, tag)
+    r["card_vs_cpu_lsb_apart"], r["card_vs_cpu_largest_lsb"] = n, worst
+    check(worst <= 1 and n < 3e-3 * r["samples"], "%s: the card's add is "
+          "%g LSB from the CPU's on %d of %d samples" % (
+              tag, worst, n, r["samples"]))
+    cpu_rc, cpu_text, r["cpu_get_s"] = cpu["get"]
+    r["cpu_match_count"] = matches(cpu_text)
+    check(card["get"][0] == cpu_rc and r["match_count"]
+          == r["cpu_match_count"], "%s: cmp on the card: exit %d, %s; on "
+          "the CPU: exit %d, %s" % (tag, card["get"][0], card["get"][1],
+                                    cpu_rc, cpu_text))
+    r["reduced_cpu_get_s"] = cpu["reduced_get"][2]
+    r["reduced_max_float_apart"] = same_report([card["reduced_get"]],
+                                               [cpu["reduced_get"][:2]])
+    check(r["reduced_max_float_apart"] is not None, "%s: at the reduced "
+          "geometry the card's report differs from the CPU's:\n%s\n%s"
+          % (tag, card["reduced_get"][1], cpu["reduced_get"][1]))
+
+
+def mono_probe(d):
+    """25. tile_probe's table on the mono file's first 4096 frames: whether
+    cuFFT gives mono's 1024-row calls of _delta_iffts the bits of a
+    larger batch."""
+    from audiowmark_tpu_torch import tile_probe
+    from audiowmark_tpu_torch.params import Params
+    x, mods, awin = tile_probe.probe_input(
+        os.path.join(d, "ch_1ch_44100.wav"), tile_probe.SIZES[-1], "cuda")
+    table = tile_probe.stage_rows_apart(x, mods, Params.water_delta, awin)
+    check(not any(row["delta_iffts"] for row in table),
+          "mono: _delta_iffts on slices differs from one call: %s" % table)
+    return table
+
+
+def channel_fleet(key):
+    """25. watermark_batch then detect_batch on CHANNEL_FLEET's streams of
+    60 s: in every stream the best eligible slot holds the message."""
+    from audiowmark_tpu_torch.models.common import parse_payload
+    from audiowmark_tpu_torch.parallel import batch as fleet
+    from audiowmark_tpu_torch.params import Params
+    set_params()
+    want = parse_payload(MSG).tolist()
+    out = {}
+    for channels, streams in CHANNEL_FLEET:
+        rng = np.random.default_rng(channels)
+        audio = (rng.random((streams, 60 * 44100, channels),
+                            dtype=np.float32) - np.float32(0.5)) \
+            * np.float32(0.6)
+        marked, mark_s = timed(lambda: fleet.watermark_batch(key, audio, MSG))
+        found, detect_s = timed(lambda: fleet.detect_batch(key, marked))
+        check(marked.shape == audio.shape and np.isfinite(marked).all(),
+              "watermark_batch with %d channels" % channels)
+        for b in range(streams):
+            q = np.where(found["eligible"][b], found["qualities"][b], -1.0)
+            best = int(np.argmax(q))
+            check(q[best] > Params.sync_threshold2
+                  and found["bits"][b][best].tolist() == want,
+                  "%d channels, stream %d: the best eligible slot %d "
+                  "(quality %g) does not hold the message"
+                  % (channels, b, best, q[best]))
+        out["%dch" % channels] = dict(streams=streams, watermark_s=mark_s,
+                                      detect_s=detect_s)
+    return out
+
+
+def channel_api():
+    """25. the JAX package's API functions of the port on the card against
+    the CPU: conv_decode_hard and code_decode_soft (128 bits, --short 12)
+    bits and errors exact, and candidate_eligibility on exact-tie plateaus
+    equal to the CPU's and to the host's _select_local_maxima."""
+    from audiowmark_tpu_torch.codec import (ConvBlockType, code_decode_soft,
+                                            code_encode, conv_decode_hard,
+                                            conv_encode)
+    from audiowmark_tpu_torch.models.syncfinder import _select_local_maxima
+    from audiowmark_tpu_torch.ops.search_fused import candidate_eligibility
+    from audiowmark_tpu_torch.params import Params
+    rng = np.random.RandomState(25)
+    bits = rng.randint(0, 2, 128)
+    coded = conv_encode(ConvBlockType.b, bits)
+    coded[rng.choice(coded.size, 80, replace=False)] ^= 1
+    hard = [conv_decode_hard(ConvBlockType.b, coded, device=dev)
+            for dev in ("cuda", "cpu")]
+    check(np.array_equal(hard[0], hard[1]) and np.array_equal(hard[0], bits),
+          "conv_decode_hard on the card differs from the CPU")
+    soft = {}
+    for short in (0, 12):
+        set_params(payload_short=bool(short), payload_size=short or 128)
+        msg = rng.randint(0, 2, short or 128)
+        coded = code_encode(ConvBlockType.a, msg)
+        row = np.clip(coded + rng.randn(coded.size) * 0.25, 0, 1) \
+            .astype(np.float32)
+        got = [code_decode_soft(ConvBlockType.a, row, True, dev)
+               for dev in ("cuda", "cpu")]
+        check(np.array_equal(got[0][0], got[1][0]) and got[0][1] == got[1][1]
+              and np.array_equal(got[0][0], msg), "code_decode_soft "
+              "(short %d) on the card differs from the CPU" % short)
+        soft["short_%d_error" % short] = got[0][1]
+    set_params()
+    plateaus = [np.zeros(50), np.ones(7),
+                np.array([1.0, 1.0, 0.5, 1.0, 1.0, 1.0, 0.2]),
+                np.array([0.4, 0.4, 0.4, 0.0, 0.4, 0.4])]
+    for q in plateaus:
+        q = q.astype(np.float32)
+        ok = np.ones(q.size, dtype=bool)
+        on = [candidate_eligibility(*(torch.from_numpy(a).to(dev)
+                                      for a in (q, np.zeros_like(q), ok)))
+              for dev in ("cuda", "cpu")]
+        check(torch.equal(on[0][0].cpu(), on[1][0])
+              and np.array_equal(on[1][0].numpy(), _select_local_maxima(q)),
+              "candidate_eligibility on the plateau %s" % q.tolist())
+    check(Params.payload_size == 128, "Params were not reset")
+    return dict(plateaus=len(plateaus), **soft)
+
+
+def phase_channels(d, smi):
+    """25. channel counts and rates other than stereo 44.1 kHz on the card
+    (CHANNEL_FILES), the fleet API with 1 and 6 channels, and the JAX
+    package's API functions on the card; the CPU's runs that the card's
+    are held to go to four worker processes meanwhile.  Returns K1's
+    launches over the phase's runs on the card."""
+    import concurrent.futures
+    import multiprocessing
+    from audiowmark_tpu_torch.crypto.keys import Key
+    t_phase = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            4, mp_context=multiprocessing.get_context("spawn")) as pool:
+
+        def path():
+            files, cpu = {}, {}
+            for c, rate, secs in CHANNEL_FILES:
+                tag = "%dch_%d" % (c, rate)
+                r, jobs, card = channel_card(d, c, rate, secs)
+                files[tag] = (r, card)
+                cpu[tag] = {k: pool.submit(cpu_job, *a)
+                            for k, a in jobs.items()}
+            return files, cpu, channel_fleet(Key()), channel_api(), \
+                mono_probe(d)
+
+        (files, cpu, fleet_fields, api, probe), launches = launches_of(
+            "the channels path", path)
+        card_s = time.perf_counter() - t_phase
+        for tag, (r, card) in files.items():
+            channel_cpu_checks(tag, r, card, {k: f.result()
+                                              for k, f in cpu[tag].items()})
+            phase("channel", file=tag, card=smi, **r)
+    stages = ("rfft", "factor", "irfft")
+    phase("channels", files=len(files), fleet=fleet_fields, api=api,
+          mono_probe=probe, mono_stages_apart=[
+              name for name in stages if any(row[name] for row in probe)],
+          k1_launches=launches, card_s=card_s,
+          seconds=time.perf_counter() - t_phase, card=smi)
+    return launches
+
+
 def main_path(port, key, d, n200, wm200, smi):
     """5.-7. 200 s add and cmp (cold, warm), the SNR, 60 s and 30 s."""
     from audiowmark_tpu_torch.io.wavdata import WavData
@@ -1974,13 +2287,12 @@ def main() -> int:
     key = Key()
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as d:
         t0 = time.perf_counter()
-        for secs in (200, 60, 30):
+        for secs in () if new_only else (200, 60, 30):
             gen_noise(key, os.path.join(d, "n%d.wav" % secs), secs, 44100)
         phase("fixtures", seconds=time.perf_counter() - t0)
 
         if new_only:
-            paths = {"stream_add": phase_stream_add(port, key, d, smi)}
-            cli_s = None
+            paths = {"channels": phase_channels(d, smi)}
         else:
             paths, main_check, prep_ms, cli_s = earlier_phases(
                 port, key, d, smi, checks)
@@ -1998,12 +2310,14 @@ def main() -> int:
             paths["modes"] = phase_modes(port, d, smi, checks)
             paths["ber"] = phase_ber(d, smi)
 
-        # ---- 22.-24. the shell's streams, the strength sweep, the time
-        # to first byte ----
-        paths["streams"] = phase_streams(d, smi)
-        if not new_only:
+            # ---- 22.-24. the shell's streams, the strength sweep, the
+            # time to first byte ----
+            paths["streams"] = phase_streams(d, smi)
             phase_quality(d, smi)
-        paths["ttfb"] = phase_ttfb(d, smi, cli_s)
+            paths["ttfb"] = phase_ttfb(d, smi, cli_s)
+
+            # ---- 25. other channel counts and rates ----
+            paths["channels"] = phase_channels(d, smi)
 
     phase("total", seconds=time.perf_counter() - t_script, card=smi)
     if new_only:

@@ -85,12 +85,13 @@ def test_limiter_body_matches_jax(n, block):
 
 
 def test_limiter_body_equals_the_whole_file_limiter():
-    """One stream through the batch limiter = ops/frames.limiter_apply."""
-    from audiowmark_tpu_torch.ops.frames import limiter_apply
+    """One stream through the batch limiter = ops/limiter.limit_blocks,
+    the whole-file add's limiter."""
+    from audiowmark_tpu_torch.ops.limiter import limit_blocks
     rng = np.random.RandomState(2)
     x = torch.from_numpy((rng.rand(1, 10000, C).astype(np.float32) - 0.5)
                          * 3.0)
-    want = limiter_apply(x.reshape(-1), torch.tensor(0.99), 4410, C)
+    want = limit_blocks(x.reshape(-1), torch.tensor(0.99), 4410, C)
     got = t_batch._limiter_body(x, 4410, 0.99).reshape(-1)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
 
