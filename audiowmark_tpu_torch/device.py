@@ -18,13 +18,19 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 
 def resolve(device: DeviceLike = None) -> torch.device:
-    """`device` as a torch.device; None means the CUDA card."""
+    """`device` as a torch.device; None means the CUDA card.  A card is
+    always named with its index ("cuda" is the calling thread's current
+    card), so that caches keyed by device see one device under one key,
+    and a host thread, whose current card is 0 whatever the caller set,
+    works on the card the caller meant."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "audiowmark_tpu_torch needs a CUDA device; pass device='cpu' "
             "(the command line: set AUDIOWMARK_TORCH_DEVICE=cpu) to run "
             "the plain PyTorch path on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -22,6 +22,7 @@ audiowmark_tpu's codec/convcode.py written in torch.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
@@ -42,9 +43,11 @@ _ERRORS = {-1: "no cluster of %d CTAs fits on the card",
            -4: "bm's TMA descriptors could not be encoded (cluster %d)",
            -5: "the device index is past the kernel's table (cluster %d)"}
 
-# launches of the CUDA kernel by viterbi_acs since the last reset
-# (chip_smoke.py reads it to show that a run went through the kernel)
+# launches of the CUDA kernel by viterbi_acs since the last reset, in all
+# and by card index (chip_smoke.py reads them to show that a run went
+# through the kernel, and on which cards)
 LAUNCHES = 0
+LAUNCHES_BY_CARD: Counter = Counter()
 
 
 def pack_decisions(d: torch.Tensor) -> torch.Tensor:
@@ -146,6 +149,7 @@ def viterbi_acs(bm: torch.Tensor):
     launch(bm, *outs, cluster_size(B, torch.cuda.get_device_properties(
         bm.device).multi_processor_count))
     LAUNCHES += 1
+    LAUNCHES_BY_CARD[bm.device.index] += 1
     return outs
 
 

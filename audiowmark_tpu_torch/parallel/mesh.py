@@ -24,7 +24,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve, spread
+from ..device import DeviceLike, card_count, spread
 from ..ops.frames import FRAME, _delta_iffts, window_tensors
 
 
@@ -53,13 +53,13 @@ def _device_array(devs) -> np.ndarray:
 
 def make_mesh(n_devices: int = 0, dp: int = 0,
               device: DeviceLike = None) -> Mesh:
-    """A (dp, sp) mesh of n_devices devices (0: every card).  On CUDA they
-    are the cards cuda:0 .. cuda:n-1; a request for more than there are
-    cycles through them, and on the CPU every entry is the CPU (logical
-    shards).  dp defaults to the largest power of two with dp*dp <= n that
-    keeps n divisible."""
-    n = n_devices or (torch.cuda.device_count()
-                      if resolve(device).type == "cuda" else 1)
+    """A (dp, sp) mesh of n_devices devices (0: device.card_count, every
+    card unless AUDIOWMARK_MULTICHIP=0).  On CUDA they are the cards
+    cuda:0 .. cuda:n-1; a request for more than there are cycles through
+    them, and on the CPU every entry is the CPU (logical shards).  dp
+    defaults to the largest power of two with dp*dp <= n that keeps n
+    divisible."""
+    n = n_devices or card_count(device)
     devs = spread(device, n)
     if dp == 0:
         dp = 1

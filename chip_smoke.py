@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (audiowmark_tpu_torch) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # phases 1-25, one card
+    python3 chip_smoke.py --cards 4    # phases 1, 2 and 26, four cards
 
 Drives the port's main path as a user calls it — add_watermark, then
 get_watermark as `cmp` — on deterministic 16-bit stereo noise at 44.1 kHz
@@ -187,6 +188,34 @@ them in `launches_by_path`.
 `python3 chip_smoke.py --new-only` runs phases 1, 2 (and the small check
 of 4) and 25 alone; it prints no kernels line.
 
+`python3 chip_smoke.py --cards 4` runs phases 1, 2 and 26 on exactly four
+cards (an even N >= 2 cards in general; it fails on a machine with another
+count) and prints every card's nvidia-smi line:
+
+ 26. cards: the paths that split work over the cards, each called on all
+     cards and with AUDIOWMARK_MULTICHIP=0 (one card) in the order one,
+     all, all, one, every result equal to the first one-card call's, with
+     the walls of each call, K1's launches per card and the peak of
+     allocated memory per card in the first call of each: K1 against its
+     plain version on every card at 143 steps and B = 1, 8, 24 and 256,
+     bit for bit, timed with CUDA events on its card; cmp of the 32-min
+     marked file in 6-min chunks (8 chunks: the chunk-group search, groups
+     of four, a row per card) and in 30-min chunks, stdout byte-equal;
+     cmp --detect-speed and --detect-speed-patient of the 30 s file played
+     at 0.9764, stdout equal and the scans' centres split over the cards
+     in contiguous shares (with the host's seconds inside each card's
+     centres, beside the scans' walls); watermark_batch of phase 16's
+     streams on the (4, 1) mesh and, padded by one frame to an even frame
+     count, on the (2, 2) mesh, 0 samples apart from the (1, 1) call;
+     detect_batch over the cards, every array equal, K1 launched once on
+     each card (with the host's seconds in each card's detector call,
+     which enqueues its share and reads nothing back); the command line
+     in processes of its own (add of the 200 s fixture, cmp
+     --expect-matches 5, get --json, cmp --detect-speed[-patient]) with
+     and without AUDIOWMARK_MULTICHIP=0: the marked file's bytes, stdout
+     and the JSON text equal.  The kernels line gives K1's launches on the
+     paths by card and by path, and its time on every card.
+
 Any failed check raises: the script exits non-zero and prints no result.
 Without a CUDA device it exits 1 before any work.  On success the line
 before the last is the kernels' JSON and the last line is
@@ -261,19 +290,19 @@ def launches_of(path, fn):
     return result, launches
 
 
-def k1_check(seed, batch, steps):
+def k1_check(seed, batch, steps, device="cuda"):
     """K1 vs its plain version on fixtures.acs_check_metrics rows (clean
-    codewords, a NaN row, random rows); see k1_check_bm."""
+    codewords, a NaN row, random rows) on `device`; see k1_check_bm."""
     from audiowmark_tpu_torch.fixtures import acs_check_metrics
-    return k1_check_bm(acs_check_metrics(seed, batch, steps, "cuda"),
+    return k1_check_bm(acs_check_metrics(seed, batch, steps, device),
                        nan_row=batch >= 4)
 
 
 def k1_check_bm(bm, nan_row=False):
-    """K1 vs its plain version on the branch metrics bm: packed and
-    unpacked decisions, metrics (NaN = NaN) and bits exact.  Returns the
-    check's numbers: ms and plain ms by CUDA events, the bound (bytes at
-    3.35 TB/s) and its share, the cluster size."""
+    """K1 vs its plain version on the branch metrics bm, on bm's card:
+    packed and unpacked decisions, metrics (NaN = NaN) and bits exact.
+    Returns the check's numbers: ms and plain ms by CUDA events, the bound
+    (bytes at 3.35 TB/s) and its share, the cluster size."""
     from audiowmark_tpu_torch.fixtures import acs_equal
     from audiowmark_tpu_torch.k1_bench import bound_ms
     from audiowmark_tpu_torch.ops import viterbi
@@ -289,13 +318,14 @@ def k1_check_bm(bm, nan_row=False):
     # the NaNs sit at the same places (checked above) and count as 0 apart
     max_abs_err = float(torch.nan_to_num(got[1] - want[1]).abs().max())
     del got, want
-    ms = cuda_ms(lambda: viterbi.viterbi_acs(bm), 20)
-    plain_ms = cuda_ms(lambda: viterbi.viterbi_acs_plain(bm), 3)
+    with torch.cuda.device(bm.device):       # the events on bm's card
+        ms = cuda_ms(lambda: viterbi.viterbi_acs(bm), 20)
+        plain_ms = cuda_ms(lambda: viterbi.viterbi_acs_plain(bm), 3)
     bound = bound_ms(batch, steps)
     return dict(batch=batch, steps=steps, max_abs_err=max_abs_err,
                 nan_metrics=n_nan, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 share=bound / ms, cluster=viterbi.cluster_size(
-                    batch, torch.cuda.get_device_properties(0)
+                    batch, torch.cuda.get_device_properties(bm.device)
                     .multi_processor_count))
 
 
@@ -2155,6 +2185,397 @@ def phase_channels(d, smi):
     return launches
 
 
+# ---- 26. the paths that split over several cards (--cards N) ----------------
+
+CARDS_K1_BATCHES = (1, 8, 24, 256)
+CARDS_CHUNK_MINUTES = 6.0       # 8 chunks of the 32-min file: 2 groups of 4
+CARDS_SPEED = "0.9764"
+
+
+def smi_lines():
+    """`nvidia-smi --query-gpu=name,power.limit` of every card, one line
+    each."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+
+
+def sync_cards(n):
+    for i in range(n):
+        torch.cuda.synchronize(i)
+
+
+def one_and_all(n, fn, same, what):
+    """fn(where) on one card (where = "one": AUDIOWMARK_MULTICHIP=0) and on
+    all n cards ("all"), in the order one, all, all, one: the first two
+    calls are the first of their kind in the process, the last two warm.
+    Every result must equal the one-card call's (`same(a, b)`).  Returns
+    (the one-card result, the fields: wall s first and warm, and per card
+    K1's launches and the peak of allocated memory in each first call)."""
+    from audiowmark_tpu_torch.ops import viterbi
+    fields, results = {}, {}
+    try:
+        for i, where in enumerate(("one", "all", "all", "one")):
+            os.environ["AUDIOWMARK_MULTICHIP"] = "0" if where == "one" else "1"
+            run = "first" if i < 2 else "warm"
+            sync_cards(n)
+            viterbi.LAUNCHES_BY_CARD.clear()
+            for c in range(n):
+                torch.cuda.reset_peak_memory_stats(c)
+            t0 = time.perf_counter()
+            result = fn(where)
+            sync_cards(n)
+            fields["%s_%s_s" % (where, run)] = time.perf_counter() - t0
+            if run == "first":
+                fields[where + "_k1_by_card"] = [
+                    viterbi.LAUNCHES_BY_CARD[c] for c in range(n)]
+                fields[where + "_peak_bytes_by_card"] = [
+                    torch.cuda.max_memory_allocated(c) for c in range(n)]
+            check(same(results.setdefault("one", result), result),
+                  "%s: the %s call (%s) differs from the first one-card "
+                  "call" % (what, where, run))
+    finally:
+        os.environ.pop("AUDIOWMARK_MULTICHIP", None)
+    return results["one"], fields
+
+
+def cards_k1(n, smi):
+    """26a. K1 vs its plain version on every card at B = 1, 8, 24, 256
+    (143 steps), each launch counted on its card."""
+    from audiowmark_tpu_torch.ops import viterbi
+    by_card = []
+    for c in range(n):
+        checks = []
+        for batch in CARDS_K1_BATCHES:
+            viterbi.LAUNCHES_BY_CARD.clear()
+            checks.append(k1_check(batch + c, batch, 143,
+                                   torch.device("cuda", c)))
+            check(viterbi.LAUNCHES_BY_CARD.get(c, 0) > 0
+                  and set(viterbi.LAUNCHES_BY_CARD) == {c},
+                  "K1 on cuda:%d launched on %s" % (
+                      c, dict(viterbi.LAUNCHES_BY_CARD)))
+        by_card.append(checks)
+        phase("cards_k1", card_index=c, card=smi[c], checks=[
+            {k: ck[k] for k in ("batch", "steps", "cluster", "ms", "plain_ms",
+                                "bound_ms", "share", "max_abs_err")}
+            for ck in checks])
+    return by_card
+
+
+def cards_group(port, key, d, n, smi):
+    """26b. cmp of the 32-min marked file in 6-min chunks (groups of n on
+    n cards) and in the default 30-min chunks, on all cards and on one:
+    stdout byte-equal."""
+    from audiowmark_tpu_torch.models import syncfinder as sf
+    groups = []
+    real = sf.search_block_group
+
+    def recording(key_list, wavs, device=None, xs=None):
+        out = real(key_list, wavs, device, xs)
+        groups.append((len(wavs), out is not None))
+        return out
+
+    fields = {}
+    sf.search_block_group = recording
+    try:
+        for name, minutes in (("6min", CARDS_CHUNK_MINUTES), ("30min", None)):
+            params = {} if minutes is None else {"get_chunk_size": minutes}
+            seen = {}
+
+            def get(where):
+                groups.clear()
+                rc, _, text = cmp(port, key, os.path.join(d, "wmlong.wav"),
+                                  None, **params)
+                seen[where] = list(groups)
+                return rc, text
+
+            (rc, text), f = one_and_all(n, get, lambda a, b: a == b,
+                                        "the 32-min cmp (%s chunks)" % name)
+            counts = [line for line in text.splitlines()
+                      if line.startswith("match_count")]
+            check(rc == 0 and len(counts) == 1 and "pattern" in text,
+                  "the 32-min cmp: rc %d\n%s" % (rc, text))
+            check(not seen["one"], "a group search with one card")
+            if minutes is not None:
+                check(seen["all"] and all(ok for _, ok in seen["all"])
+                      and max(k for k, _ in seen["all"]) == n,
+                      "6-min chunks on %d cards gave groups %s"
+                      % (n, seen["all"]))
+            fields[name] = dict(f, match_count=counts[0],
+                                groups_all=seen["all"])
+    finally:
+        sf.search_block_group = real
+    phase("cards_group", card=smi, **fields)
+    return fields
+
+
+def cards_speed(port, key, d, n, smi):
+    """26c. cmp --detect-speed and --detect-speed-patient of the 30 s file
+    played at 0.9764, on all cards and on one: stdout equal; the scans'
+    centres split over the cards."""
+    from audiowmark_tpu_torch.ops import speed as speed_ops
+    path = os.path.join(d, "speed_%s.wav" % CARDS_SPEED)
+    shares = []
+    real_scan, real_mag = speed_ops.speed_scan, speed_ops._center_mag_matrix
+
+    def scan(*a, **kw):
+        shares.append([])
+        t0 = time.perf_counter()
+        out = real_scan(*a, **kw)
+        scan_s.append(time.perf_counter() - t0)
+        return out
+
+    def mag(x, *a):
+        # one centre on that device, and the host's seconds in its
+        # resampling and mag matrix (blocking uploads included)
+        t0 = time.perf_counter()
+        out = real_mag(x, *a)
+        shares[-1].append((x.device, time.perf_counter() - t0))
+        return out
+
+    fields, scan_s = {}, []
+    speed_ops.speed_scan, speed_ops._center_mag_matrix = scan, mag
+    try:
+        for option in ("detect_speed", "detect_speed_patient"):
+            seen, host = {}, {}
+
+            def get(where):
+                shares.clear()
+                scan_s.clear()
+                rc, _, text = cmp(port, key, path, 1,
+                                  test_speed=float(CARDS_SPEED),
+                                  **{option: True})
+                cards = [torch.device("cuda", c) for c in range(n)]
+                seen[where] = [[sum(dev == card for dev, _ in s)
+                                for card in cards] for s in shares]
+                host[where] = dict(scans_s=sum(scan_s), centres_host_s=[
+                    sum(t for s in shares for dev, t in s if dev == card)
+                    for card in cards])
+                return text
+
+            text, f = one_and_all(n, get, lambda a, b: a == b,
+                                  "cmp --%s" % option.replace("_", "-"))
+            line = [x for x in text.splitlines()
+                    if x.startswith("detect_speed ")]
+            check(len(line) == 1, "no detect_speed line in:\n" + text)
+            for s in seen["all"]:
+                total = sum(s)
+                if not total:
+                    continue
+                per = -(-total // min(n, total))
+                check(s == [min(per, max(total - c * per, 0))
+                            for c in range(n)],
+                      "the centres split over the cards as %s" % s)
+            check(all(s[1:] == [0] * (n - 1) for s in seen["one"]),
+                  "one card's scan split its centres: %s" % seen["one"])
+            fields[option] = dict(f, detect_speed=line[0],
+                                  centres_by_card=seen["all"],
+                                  warm_host=host)
+    finally:
+        speed_ops.speed_scan, speed_ops._center_mag_matrix = \
+            real_scan, real_mag
+    phase("cards_speed", card=smi, **fields)
+    return fields
+
+
+def cards_fleet(key, n, smi):
+    """26d. watermark_batch on the (n, 1) mesh and, with one frame of
+    padding, on the (2, n/2) mesh, 0 samples apart from the (1, 1) call;
+    detect_batch over the cards: every array equal to the one-card call,
+    K1 launched once on each card."""
+    from audiowmark_tpu_torch.models.common import parse_payload
+    from audiowmark_tpu_torch.ops import detect_fused
+    from audiowmark_tpu_torch.params import Params
+    from audiowmark_tpu_torch.parallel import batch as fleet
+    from audiowmark_tpu_torch.parallel.mesh import make_mesh
+    set_params()
+    rng = np.random.default_rng(16)
+    audio = (rng.random((FLEET_STREAMS, FLEET_SECONDS * 44100, 2),
+                        dtype=np.float32) - np.float32(0.5)) * np.float32(0.6)
+    check((audio.shape[1] // 1024) % 2 == 1,
+          "the fleet's streams have an even frame count")
+    # (2, n/2) splits the frames in two: one frame of zeros makes them even
+    padded = np.concatenate(
+        [audio, np.zeros((FLEET_STREAMS, 1024, 2), np.float32)], axis=1)
+    fields = {}
+    sharded = "2x%d" % (n // 2)
+    for name, x, dp, shape in (("%dx1" % n, audio, 0, (n, 1)),
+                               (sharded, padded, 2, (2, n // 2))):
+        def mark(where, x=x, dp=dp, shape=shape):
+            mesh = make_mesh(dp=dp if where == "all" else 0)
+            check(mesh.shape == (shape if where == "all" else (1, 1)),
+                  "make_mesh gave %s" % (mesh.shape,))
+            return fleet.watermark_batch(key, x, MSG, mesh=mesh)
+
+        marked, f = one_and_all(n, mark, np.array_equal,
+                                "watermark_batch on the %s mesh" % name)
+        check(np.isfinite(marked).all()
+              and float(np.abs(marked - x).max()) > 1e-4,
+              "watermark_batch returned something else than marked audio")
+        fields["watermark_" + name] = dict(f, samples_apart=0)
+        if name != sharded:
+            unpadded = marked
+
+    # the host's seconds in each share's detector call: the call enqueues
+    # the share's work and returns without reading anything back
+    forward, enqueue = detect_fused.FusedDetector.forward, {}
+
+    def clocked(self, samples):
+        t0 = time.perf_counter()
+        out = forward(self, samples)
+        spent.append((samples.device, time.perf_counter() - t0))
+        return out
+
+    def detect(where):
+        spent.clear()
+        out = fleet.detect_batch(key, unpadded, top_k=FLEET_TOP_K)
+        enqueue[where] = [sum(t for dev, t in spent
+                              if dev == torch.device("cuda", c))
+                          for c in range(n)]
+        return out
+
+    spent = []
+    detect_fused.FusedDetector.forward = clocked
+    try:
+        out, f = one_and_all(
+            n, detect, lambda a, b: set(a) == set(b) and all(
+                np.array_equal(a[k], b[k]) for k in a), "detect_batch")
+    finally:
+        detect_fused.FusedDetector.forward = forward
+    f["warm_enqueue_s_by_card"] = enqueue
+    check(f["all_k1_by_card"] == [1] * n and f["one_k1_by_card"]
+          == [1] + [0] * (n - 1), "detect_batch launched K1 %s on %d cards"
+          " and %s on one" % (f["all_k1_by_card"], n, f["one_k1_by_card"]))
+    want = parse_payload(MSG).tolist()
+    for b in range(FLEET_STREAMS):
+        q = np.where(out["eligible"][b], out["qualities"][b], -1.0)
+        best = int(np.argmax(q))
+        check(q[best] > Params.sync_threshold2
+              and out["bits"][b][best].tolist() == want,
+              "stream %d: the best slot is not the message" % b)
+    fields["detect"] = f
+    phase("cards_fleet", streams=FLEET_STREAMS, seconds_each=FLEET_SECONDS,
+          top_k=FLEET_TOP_K, card=smi, **fields)
+    return fields
+
+
+def cards_cli(d, n, smi):
+    """26e. the command line as processes of their own on all cards and
+    with AUDIOWMARK_MULTICHIP=0: add (the files' bytes), cmp
+    --expect-matches 5, get --json (the JSON text) and cmp --detect-speed
+    and --detect-speed-patient (stdout) equal."""
+    speed_file = os.path.join(d, "speed_%s.wav" % CARDS_SPEED)
+    fields, outs = {}, {}
+    for where, flag in (("one", "0"), ("all", "1")):
+        env = dict(card_env(), AUDIOWMARK_MULTICHIP=flag)
+        wm = os.path.join(d, "cli_wm_%s.wav" % where)
+        js = os.path.join(d, "cli_%s.json" % where)
+        runs = (("add", ["add", os.path.join(d, "n200.wav"), wm, MSG]),
+                ("cmp", ["cmp", wm, MSG, "--expect-matches", "5"]),
+                ("get_json", ["get", wm, "--json", js]),
+                ("detect_speed", ["cmp", speed_file, MSG, "--detect-speed",
+                                  "--test-speed", CARDS_SPEED]),
+                ("detect_speed_patient",
+                 ["cmp", speed_file, MSG, "--detect-speed-patient",
+                  "--test-speed", CARDS_SPEED]))
+        for name, args in runs:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "audiowmark_tpu_torch"] + args,
+                cwd=REPO, env=env, capture_output=True, text=True,
+                timeout=600)
+            fields["%s_%s_s" % (where, name)] = time.perf_counter() - t0
+            check(proc.returncode == 0, "%s (%s): exit %d:\n%s\n%s" % (
+                " ".join(args), where, proc.returncode, proc.stdout,
+                proc.stderr))
+            outs[where, name] = proc.stdout
+        with open(wm, "rb") as f:
+            outs[where, "file"] = f.read()
+        with open(js) as f:
+            outs[where, "json"] = f.read()
+    for name in ("add", "cmp", "get_json", "detect_speed",
+                 "detect_speed_patient", "file", "json"):
+        check(outs["one", name] == outs["all", name],
+              "the command line's %s on %d cards differs from one card"
+              % (name, n))
+    check("\nmatch_count 5 " in "\n" + outs["all", "cmp"]
+          and "detect_speed " in outs["all", "detect_speed"]
+          and "detect_speed " in outs["all", "detect_speed_patient"],
+          "the command line printed:\n%s" % outs["all", "cmp"])
+    phase("cards_cli", card=smi, add_bytes=len(outs["all", "file"]),
+          **fields)
+    return fields
+
+
+def phase_cards(port, n, smi):
+    """26. every path of the port that splits over cards, on n cards
+    against one.  Returns the kernels line's entry."""
+    from audiowmark_tpu_torch.crypto.keys import Key
+    from audiowmark_tpu_torch.fixtures import gen_noise, long_noise
+    from audiowmark_tpu_torch.io.wavdata import WavData
+    from audiowmark_tpu_torch.ops import viterbi
+    from audiowmark_tpu_torch.ops.resample import resample_ratio
+    t_phase = time.perf_counter()
+    by_card = cards_k1(n, smi)
+
+    key = Key()
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as d:
+        t0 = time.perf_counter()
+        long_noise(1, os.path.join(d, "nlong.wav"), LONG_MINUTES * 60, 44100)
+        add(port, key, os.path.join(d, "nlong.wav"),
+            os.path.join(d, "wmlong.wav"))
+        os.remove(os.path.join(d, "nlong.wav"))
+        for secs in (200, 30):
+            gen_noise(key, os.path.join(d, "n%d.wav" % secs), secs, 44100)
+        add(port, key, os.path.join(d, "n30.wav"), os.path.join(d, "wm30.wav"))
+        resample_ratio(WavData.load(os.path.join(d, "wm30.wav")),
+                       1 / float(CARDS_SPEED), 44100).save(
+            os.path.join(d, "speed_%s.wav" % CARDS_SPEED))
+        phase("cards_fixtures", seconds=time.perf_counter() - t0)
+
+        # ---- the paths: K1's launches on each card counted per path ----
+        paths = {"group": cards_group(port, key, d, n, smi),
+                 "speed": cards_speed(port, key, d, n, smi),
+                 "fleet": cards_fleet(key, n, smi)}
+        cli = cards_cli(d, n, smi)
+
+    launches = [0] * n
+    flat = {}
+    for name, fields in paths.items():
+        for sub, f in fields.items():
+            if sub in ("6min", "30min", "detect_speed",
+                       "detect_speed_patient", "detect"):
+                flat[name + "_" + sub] = f["all_k1_by_card"]
+                launches = [a + b for a, b in zip(launches,
+                                                  f["all_k1_by_card"])]
+    check(all(launches), "K1 never launched on some card: %s" % launches)
+    phase("cards", cards=n, k1_launches_by_card=launches,
+          k1_launches_by_path=flat, cli_s=cli,
+          seconds=time.perf_counter() - t_phase, card=smi)
+    headline = by_card[0][-1]
+    return {
+        "name": "viterbi_acs",
+        "route": "cuda",
+        "source": "audiowmark_tpu_torch/csrc/viterbi_acs.cu",
+        "replaces": "audiowmark_tpu/ops/viterbi_pallas.py:128",
+        "launches": sum(launches),
+        "launches_by_card": launches,
+        "launches_by_path": flat,
+        "max_abs_err": max(c["max_abs_err"] for checks in by_card
+                           for c in checks),
+        "ms": headline["ms"],
+        "plain_ms": headline["plain_ms"],
+        "bound_ms": headline["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "batch": headline["batch"],
+        "steps": headline["steps"],
+        "by_card": [{str(c["batch"]): c["ms"] for c in checks}
+                    for checks in by_card],
+    }
+
+
 def main_path(port, key, d, n200, wm200, smi):
     """5.-7. 200 s add and cmp (cold, warm), the SNR, 60 s and 30 s."""
     from audiowmark_tpu_torch.io.wavdata import WavData
@@ -2227,8 +2648,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port runs on a CUDA card",
               file=sys.stderr)
         return 1
-    new_only = sys.argv[1:] == ["--new-only"]
-    check(new_only or not sys.argv[1:], "usage: chip_smoke.py [--new-only]")
+    args = sys.argv[1:]
+    new_only = args == ["--new-only"]
+    n_cards = int(args[1]) if len(args) == 2 and args[0] == "--cards" \
+        and args[1].isdigit() else 0
+    check(new_only or n_cards or not args,
+          "usage: chip_smoke.py [--new-only | --cards N]")
+    # no fallback: --cards N runs on a machine of exactly N cards or fails
+    check(not n_cards or (n_cards >= 2 and n_cards % 2 == 0
+                          and torch.cuda.device_count() == n_cards),
+          "--cards %d needs an even N >= 2 and a machine of exactly N CUDA "
+          "cards; this one has %d" % (n_cards, torch.cuda.device_count()))
     t_script = time.perf_counter()
     import audiowmark_tpu_torch as port
     from audiowmark_tpu_torch.crypto.keys import Key
@@ -2238,11 +2668,12 @@ def main() -> int:
 
     # ---- 1. environment ----
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    smi_all = smi_lines()
+    smi = smi_all[0]
+    check(not n_cards or len(smi_all) == n_cards,
+          "nvidia-smi lists %d cards, not %d" % (len(smi_all), n_cards))
+    for line in smi_all if n_cards else [smi]:
+        print(line, flush=True)
     phase("env", device=name, count=torch.cuda.device_count(),
           torch=torch.__version__, cuda=torch.version.cuda,
           matmul_precision=torch.get_float32_matmul_precision(),
@@ -2259,6 +2690,16 @@ def main() -> int:
              if "registers" in line or "spill" in line]
     phase("build", kernel="viterbi_acs", seconds=time.perf_counter() - t0,
           library=os.path.relpath(lib_path, REPO), ptxas=ptxas)
+
+    if n_cards:
+        # ---- 26. the paths that split over the cards ----
+        kernel = phase_cards(port, n_cards, smi_all)
+        phase("total", seconds=time.perf_counter() - t_script, card=smi_all)
+        print(json.dumps({"kernels": [kernel]}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # ---- 3. K1 vs plain on the card ----
     checks = []

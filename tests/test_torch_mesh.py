@@ -2,7 +2,8 @@
 JAX package's on its 8 host devices.
 
 * make_mesh gives the JAX package's (dp, sp) shapes for 1, 2, 4, 8 devices
-  and for a given dp;
+  and for a given dp, and with four cards (a faked count) names cuda:0 ..
+  cuda:3 where the JAX package puts jax.devices()[:4];
 * the sharded embed equals the unsharded one for sp = 1, 2, 4 and dp = 1,
   2, 0 samples apart: every shard runs the same per-frame arithmetic, and
   the halo hands over the neighbour's very frame;
@@ -66,10 +67,28 @@ def test_flat_mesh_is_one_axis():
     assert flat.shape == (8,) and flat.axis_names == ("streams",)
 
 
-@pytest.mark.skipif(torch.cuda.is_available(), reason="needs no CUDA device")
 def test_make_mesh_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("needs no CUDA device")
     with pytest.raises(RuntimeError, match="CUDA"):
         make_mesh()
+
+
+@pytest.mark.parametrize("dp", [0, 2])
+def test_make_mesh_of_four_cards_is_in_jax_order(monkeypatch, dp):
+    """With four cards (a faked count), make_mesh() names cuda:0 .. cuda:3
+    where the JAX package's make_mesh(dp=dp) puts jax.devices()[:4]:
+    (4, 1), and (2, 2) with dp = 2."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.delenv("AUDIOWMARK_MULTICHIP", raising=False)
+    want = j_make_mesh(4, dp=dp).devices
+    got = make_mesh(dp=dp).devices
+    assert got.shape == want.shape == ((4, 1) if dp == 0 else (2, 2))
+    assert all(d.type == "cuda" for d in got.reshape(-1))
+    assert [[d.index for d in row] for row in got] == \
+        [[d.id for d in row] for row in want]
 
 
 @pytest.mark.parametrize("dp,sp", [(1, 1), (1, 2), (1, 4), (2, 2), (2, 4),
