@@ -13,7 +13,8 @@ hls-prepare included (hls/hls.py).
 The commands that compute run on the CUDA card and fail without one;
 AUDIOWMARK_TORCH_DEVICE=cpu in the environment runs them on the CPU.
 AUDIOWMARK_PROFILE=<dir> writes a torch.profiler trace of the whole
-command into <dir>.
+command into <dir>, with the program's spans (utils/prof.py) beside the
+card's kernels.
 """
 
 from __future__ import annotations
@@ -555,28 +556,34 @@ def gen_key_cmd(outfile: str, key_name: str) -> int:
 
 def main(argv: Optional[List[str]] = None) -> int:
     # AUDIOWMARK_PROFILE=<dir> records a torch.profiler trace (host and
-    # CUDA activities) of the whole command and writes it into the
-    # directory as a Chrome trace (chrome://tracing, Perfetto)
+    # CUDA activities, every thread) of the whole command with the
+    # program's spans switched on, and writes it into the directory as a
+    # Chrome trace (chrome://tracing, Perfetto)
     profile_dir = os.environ.get("AUDIOWMARK_PROFILE")
     if not profile_dir:
         return _main(argv)
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from .utils import prof
     try:
         os.makedirs(profile_dir, exist_ok=True)
         activities = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
             activities.append(ProfilerActivity.CUDA)
-        trace = profile(activities=activities)
+        trace = profile(activities=activities,
+                        experimental_config=_all_threads())
         trace.__enter__()
     except Exception as e:
         error("audiowmark: cannot start profiler trace in '%s': %s\n"
               % (profile_dir, e))
         return 1
     ret = 1
+    enabled = prof.enabled
+    prof.enabled = True
     try:
         ret = _main(argv)
     finally:
+        prof.enabled = enabled
         try:
             trace.__exit__(None, None, None)
             path = os.path.join(profile_dir,
@@ -589,6 +596,13 @@ def main(argv: Optional[List[str]] = None) -> int:
                   "'%s': %s\n" % (profile_dir, e))
             ret = 1
     return ret
+
+
+def _all_threads():
+    """The profiler's setting that records every thread, the get's
+    prefetch thread too (by default it records the main thread alone)."""
+    from torch._C._profiler import _ExperimentalConfig
+    return _ExperimentalConfig(profile_all_threads=True)
 
 
 def _main(argv: Optional[List[str]] = None) -> int:

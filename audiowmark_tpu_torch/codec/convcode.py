@@ -25,6 +25,7 @@ from torch import nn
 
 from ..device import DeviceLike, resolve
 from ..ops.viterbi import ORDER, STATE_COUNT, viterbi_acs
+from ..utils import prof
 
 
 class ConvBlockType(Enum):
@@ -132,6 +133,10 @@ class ViterbiDecoder(nn.Module):
         """groups of (block type, coded rows (B_i, n_i) on this device) with
         equal step counts -> (bits (sum B_i, steps) int32, errors
         (sum B_i,) f32), rows in group order, through ONE trellis."""
+        with prof.phase("viterbi.forward"):
+            return self._forward(groups)
+
+    def _forward(self, groups):
         _, c0 = groups[0]
         steps = c0.shape[1] // self.table(groups[0][0]).shape[1]
         bm = torch.empty((sum(c.shape[0] for _, c in groups), steps,
@@ -155,6 +160,7 @@ def viterbi_decoder(device: DeviceLike = None) -> ViterbiDecoder:
     dev = resolve(device)
     dec = _decoders.get(dev)
     if dec is None:
+        prof.count("build.viterbi_decoder")
         dec = ViterbiDecoder().to(dev)
         _decoders[dev] = dec
     return dec
@@ -178,8 +184,9 @@ def conv_decode_soft_mixed(groups, device: DeviceLike = None):
             for bt, c in groups if np.shape(c)[0]]
     if live:
         bits_d, errs_d = dec(live)
-        bits = bits_d.cpu().numpy()
-        errs = errs_d.cpu().numpy()
+        with prof.phase("viterbi.readback"):
+            bits = bits_d.cpu().numpy()
+            errs = errs_d.cpu().numpy()
     out = []
     k = 0
     for bt, c in groups:

@@ -23,6 +23,7 @@ from ..params import Params
 from ..device import DeviceLike, resolve
 from ..ops.resample import StreamingResampler
 from ..tables import frames_per_block
+from ..utils import prof
 
 # frames per read of a 44.1 kHz input, as the reference reads
 _READ_BLOCK = 4096
@@ -90,7 +91,8 @@ class WavChunkLoader:
                 / float(Params.mark_sample_rate)
             samples = samples[samples.size - keep:]
 
-        samples, eof = self._refill(samples)
+        with prof.phase("load.read"):
+            samples, eof = self._refill(samples)
         self.wav.set_samples(samples)
 
         if eof:
@@ -106,7 +108,11 @@ class WavChunkLoader:
             self.state = "LAST_CHUNK" if self.wav.samples.size else "DONE"
 
     def _refill(self, samples: np.ndarray):
-        """Fill the chunk up to max_size; returns (samples, eof)."""
+        """Fill the chunk up to max_size; returns (samples, eof).  The
+        caller's one span `load.read` covers the fill: a span per
+        4096-frame read, thousands a chunk, would slow a traced get by
+        several per cent.  At another rate the resampler's calls are spans
+        `load.resample` inside it."""
         block = _RESAMPLE_BLOCK
         chunks = [samples]
         total = samples.size
@@ -118,13 +124,15 @@ class WavChunkLoader:
                     want = int(block * self.in_stream.sample_rate()
                                / Params.mark_sample_rate)
                     buf = self.in_stream.read_frames(want)
-                    self.resampler.write_frames(buf)
-                    if buf.size == 0:
-                        self.resampler.write_trailing_frames()
-                        self.resampler_in_eof = True
+                    with prof.phase("load.resample"):
+                        self.resampler.write_frames(buf)
+                        if buf.size == 0:
+                            self.resampler.write_trailing_frames()
+                            self.resampler_in_eof = True
                 n = min(self.resampler.can_read_frames(),
                         (self.max_size - total) // nch)
-                buf = self.resampler.read_frames(n).cpu().numpy()
+                with prof.phase("load.resample"):
+                    buf = self.resampler.read_frames(n).cpu().numpy()
             else:
                 n = min(_READ_BLOCK, (self.max_size - total) // nch)
                 buf = self.in_stream.read_frames(n)

@@ -33,6 +33,7 @@ from ..ops.extract import block_raw, layout
 from ..ops.frames import FRAME
 from ..tables import (KeyTables, get_key_tables, randomize_bit_order,
                       tables_to_device)
+from ..utils import prof
 from . import syncfinder
 from .resultset import PatternType, ResultSet
 from .syncfinder import SyncMode
@@ -159,10 +160,18 @@ class BlockDecoder:
         (syncfinder.upload's form); None -> uploaded here when needed."""
         if sync_results is None:
             if x is None:
-                x = syncfinder.upload(wav_data, resolve(self.device))
+                with prof.phase("get.upload"):
+                    x = syncfinder.upload(wav_data, resolve(self.device))
             sync_results = syncfinder.search(key_list, wav_data,
                                              SyncMode.BLOCK, self.device, x)
         self.key_results = sync_results
+        with prof.phase("get.extract"):
+            self._extract(wav_data, result_set, jobs, x)
+
+    def _extract(self, wav_data, result_set: ResultSet, jobs: _DecodeJobs,
+                 x: Optional[torch.Tensor]):
+        """The soft bits of the found blocks, their A+B joins and the
+        block chain, queued on `jobs`."""
         n_channels = wav_data.n_channels
         samples = wav_data.samples
 
@@ -336,10 +345,19 @@ class ClipDecoder:
         made them; None -> search now."""
         x = None
         if sync_results is None:
-            x = syncfinder.upload(wav_data, resolve(self.device))
+            with prof.phase("get.upload"):
+                x = syncfinder.upload(wav_data, resolve(self.device))
             sync_results = syncfinder.search(key_list, wav_data,
                                              SyncMode.CLIP, self.device, x)
-        key_results = sync_results
+        with prof.phase("get.extract"):
+            self._extract(wav_data, sync_results, result_set,
+                          time_offset_sec, jobs, x)
+
+    def _extract(self, wav_data, key_results, result_set: ResultSet,
+                 time_offset_sec, jobs: _DecodeJobs,
+                 x: Optional[torch.Tensor]):
+        """The joined soft bits of each found block pair of the window,
+        queued on `jobs`."""
         n_channels = wav_data.n_channels
         samples = wav_data.samples
         for key_result in key_results:
@@ -412,8 +430,11 @@ class ClipDecoder:
         wav_frames = wav_data.n_values // (FRAME * wav_data.n_channels)
         if wav_frames >= tables.frames_per_block * 3.1:
             return None
-        windows = [w for w in (self._build_window(key_list, wav_data, pos)
-                               for pos in ("start", "end")) if w is not None]
+        with prof.phase("get.clip_windows"):
+            windows = [w for w in (self._build_window(key_list, wav_data,
+                                                      pos)
+                                   for pos in ("start", "end"))
+                       if w is not None]
         # both windows in ONE batched search; None -> window by window
         pair_fin = (syncfinder.search_clip_pair_launch(
                         key_list, [w for w, _ in windows], self.device)

@@ -33,6 +33,7 @@ from ..ops.frames import FRAME, add_file_core, embed_delta_frames
 from ..ops.limiter import StreamingLimiter
 from ..ops.resample import StreamingResampler, _filter_params
 from ..tables import get_key_tables, tables_to_device
+from ..utils import prof
 from .common import build_ab_frame_mods, parse_payload
 
 # frames per streaming tile: input of unknown length ramps up from 16 to
@@ -124,16 +125,28 @@ class StreamingEmbedder:
             n_whole = self._in_remainder.size // vpf * vpf
             ready = self._in_remainder[:n_whole]
             self._in_remainder = self._in_remainder[n_whole:]
-            return self._gen_frames(
-                torch.from_numpy(ready).to(self.device)).cpu().numpy()
+            with prof.phase("add.upload"):
+                x = torch.from_numpy(ready).to(self.device)
+            with prof.phase("add.embed"):
+                delta = self._gen_frames(x)
+            with prof.phase("add.readback"):
+                return delta.cpu().numpy()
 
-        self.in_resampler.write_frames(samples)
+        with prof.phase("add.resample"):
+            self.in_resampler.write_frames(samples)
         vpf_frames = self.in_resampler.can_read_frames() // FRAME * FRAME
         if vpf_frames:
-            wm = self._gen_frames(self.in_resampler.read_frames(vpf_frames))
-            self.out_resampler.write_frames(wm)
+            with prof.phase("add.resample"):
+                x = self.in_resampler.read_frames(vpf_frames)
+            with prof.phase("add.embed"):
+                wm = self._gen_frames(x)
+            with prof.phase("add.resample"):
+                self.out_resampler.write_frames(wm)
         to_read = self.out_resampler.can_read_frames()
-        return self.out_resampler.read_frames(to_read).cpu().numpy()
+        with prof.phase("add.resample"):
+            delta = self.out_resampler.read_frames(to_read)
+        with prof.phase("add.readback"):
+            return delta.cpu().numpy()
 
     def skip(self, zero_frames: int) -> int:
         """Skip a whole-frame zero lead-in, keeping the PRNG frame phase
@@ -229,7 +242,8 @@ def _add_file_fast(embedder: StreamingEmbedder, in_stream: AudioInputStream,
     from ..io.ffshim import drain_stream
 
     device = embedder.device
-    samples = drain_stream(in_stream)
+    with prof.phase("add.read"):
+        samples = drain_stream(in_stream)
     n_frames_in = samples.size // n_channels
     n_out = n_frames_in * n_channels
 
@@ -245,15 +259,18 @@ def _add_file_fast(embedder: StreamingEmbedder, in_stream: AudioInputStream,
         * int(Params.limiter_block_size_ms) // 1000
 
     dev = tables_to_device(embedder.tables, device)
-    out = add_file_core(
-        torch.from_numpy(x).to(device), embedder.frame_mods(G),
-        embedder.water_delta, dev["analysis_window"],
-        dev["synthesis_window"], n_channels, n_out,
-        bool(Params.test_no_limiter), out_i16, block_size,
-        Params.limiter_ceiling)
+    with prof.phase("add.upload"):
+        x_dev = torch.from_numpy(x).to(device)
+    with prof.phase("add.core"):
+        out = add_file_core(
+            x_dev, embedder.frame_mods(G), embedder.water_delta,
+            dev["analysis_window"], dev["synthesis_window"], n_channels,
+            n_out, bool(Params.test_no_limiter), out_i16, block_size,
+            Params.limiter_ceiling)
     # out_i16: the device already applied the writer's trunc-clip, and the
     # int16 buffer goes to the writer as it is
-    out_np = out.cpu().numpy()
+    with prof.phase("add.readback"):
+        out_np = out.cpu().numpy()
 
     # reference data-block count: boundaries within the frames the 1-frame
     # reference loop would feed, NOT within the padded pass
@@ -264,7 +281,8 @@ def _add_file_fast(embedder: StreamingEmbedder, in_stream: AudioInputStream,
         (embedder.frame_number + t + 1) % embedder.frames_per_block == 0))
     embedder.frame_number += G
 
-    out_stream.write_frames(out_np)
+    with prof.phase("add.write"):
+        out_stream.write_frames(out_np)
     return n_frames_in
 
 
@@ -327,11 +345,12 @@ def add_stream_watermark(key: Key, in_stream: AudioInputStream,
     info("Channels:     %d\n" % in_stream.n_channels())
 
     n_channels = in_stream.n_channels()
-    embedder = StreamingEmbedder(key, n_channels, in_stream.sample_rate(),
-                                 bitvec, dev)
-    limiter = StreamingLimiter(n_channels, in_stream.sample_rate(),
-                               Params.limiter_block_size_ms,
-                               Params.limiter_ceiling)
+    with prof.phase("add.setup"):
+        embedder = StreamingEmbedder(key, n_channels, in_stream.sample_rate(),
+                                     bitvec, dev)
+        limiter = StreamingLimiter(n_channels, in_stream.sample_rate(),
+                                   Params.limiter_block_size_ms,
+                                   Params.limiter_ceiling)
 
     snr_delta_power = 0.0
     snr_signal_power = 0.0
@@ -376,13 +395,15 @@ def add_stream_watermark(key: Key, in_stream: AudioInputStream,
         tile = tile_frames * FRAME
         tile_frames = min(tile_frames * 2, max_tile_frames)
         if zero_frames_in > 0:
-            samples = in_stream.read_frames(tile - zero_frames_in)
+            with prof.phase("add.read"):
+                samples = in_stream.read_frames(tile - zero_frames_in)
             samples = np.concatenate([
                 np.zeros(zero_frames_in * n_channels, dtype=np.float32),
                 samples])
             zero_frames_in = 0
         else:
-            samples = in_stream.read_frames(tile)
+            with prof.phase("add.read"):
+                samples = in_stream.read_frames(tile)
         got_frames = samples.size // n_channels
         total_input_frames += got_frames
 
@@ -419,7 +440,8 @@ def add_stream_watermark(key: Key, in_stream: AudioInputStream,
 
         mixed = delta + orig_samples
         if not Params.test_no_limiter:
-            mixed = limiter.process(mixed)
+            with prof.phase("add.limiter"):
+                mixed = limiter.process(mixed)
 
         max_write = total_input_frames - total_output_frames
         if mixed.size > max_write * n_channels:
@@ -431,7 +453,8 @@ def add_stream_watermark(key: Key, in_stream: AudioInputStream,
             total_output_frames += cut_frames
             zero_frames_out -= cut_frames
 
-        out_stream.write_frames(mixed)
+        with prof.phase("add.write"):
+            out_stream.write_frames(mixed)
         total_output_frames += mixed.size // n_channels
         if eof and total_input_frames == total_output_frames:
             break

@@ -243,6 +243,7 @@ def get_watermark(key_list: List[Key], infile: str, orig_pattern: str,
             thread.join()
         loader.close()
 
-    result_set.sort(key_list)
-    time_length = int(round(loader.length()))
-    return report(result_set, time_length, orig_bitvec)
+    with prof.phase("get.report"):
+        result_set.sort(key_list)
+        time_length = int(round(loader.length()))
+        return report(result_set, time_length, orig_bitvec)

@@ -38,6 +38,7 @@ from ..crypto.keys import Key
 from ..device import DeviceLike, resolve
 from ..params import Params
 from ..tables import get_key_tables, tables_to_device
+from ..utils import prof
 from .extract import block_raw
 from .frames import FRAME, db_bands
 from .search_fused import candidate_eligibility
@@ -68,6 +69,7 @@ class FusedDetector(nn.Module):
     def __init__(self, key: Key, cfg: DetectorConfig,
                  device: DeviceLike = None):
         super().__init__()
+        prof.count("build.detector")
         dev = resolve(device)
         tables = get_key_tables(key)
         tdev = tables_to_device(tables, dev)
@@ -104,43 +106,47 @@ class FusedDetector(nn.Module):
         n_taus = SHIFTS * (cfg.n_frames - 1)
 
         # ---- hop-256 dB spectrogram, summed over channels ----
-        windows = x.T.unfold(1, FRAME, HOP)[:, :n_taus]
-        S = torch.sum(db_bands(windows, self.awin), dim=0)
+        with prof.phase("detect.spectrogram"):
+            windows = x.T.unfold(1, FRAME, HOP)[:, :n_taus]
+            S = torch.sum(db_bands(windows, self.awin), dim=0)
 
         # ---- score sweep, local mean, eligibility, top-K: a stable
         # descending sort gives ties (every filler slot scores -1) to the
         # lower start ----
-        q = sync_scores(S, self.sb, self.n_starts)
-        mean = local_mean(q)
-        if cfg.cli_masking:
-            elig, aq = candidate_eligibility(
-                q, mean, torch.ones_like(q, dtype=torch.bool))
-            score = torch.where(elig, aq, torch.full_like(aq, -1.0))
-        else:
-            score = torch.abs(q - mean)
-        top = torch.sort(score, descending=True, stable=True).indices[:K]
-        eligible = score[top] >= 0
-        mean_top = mean[top]
+        with prof.phase("detect.select"):
+            q = sync_scores(S, self.sb, self.n_starts)
+            mean = local_mean(q)
+            if cfg.cli_masking:
+                elig, aq = candidate_eligibility(
+                    q, mean, torch.ones_like(q, dtype=torch.bool))
+                score = torch.where(elig, aq, torch.full_like(aq, -1.0))
+            else:
+                score = torch.abs(q - mean)
+            top = torch.sort(score, descending=True, stable=True).indices[:K]
+            eligible = score[top] >= 0
+            mean_top = mean[top]
 
         # ---- grid refine (src/syncfinder.cc:427-442): the fine position
         # with the largest |q - mean| among the valid ones, the first
         # maximum winning ----
         batch = max(1, min(cfg.candidate_batch, K))
-        pos, fq, valid = refine_grid_scores(
-            pad_channels_first(x.reshape(-1), C), top * HOP, n_samples,
-            self.sb, self.awin, batch=batch)
-        best = torch.argmax(torch.abs(fq - mean_top[:, None])
-                            * valid.to(fq.dtype), dim=1, keepdim=True)
-        best_pos = pos.gather(1, best)[:, 0]
-        best_q = fq.gather(1, best)[:, 0]
+        with prof.phase("detect.refine"):
+            pos, fq, valid = refine_grid_scores(
+                pad_channels_first(x.reshape(-1), C), top * HOP, n_samples,
+                self.sb, self.awin, batch=batch)
+            best = torch.argmax(torch.abs(fq - mean_top[:, None])
+                                * valid.to(fq.dtype), dim=1, keepdim=True)
+            best_pos = pos.gather(1, best)[:, 0]
+            best_q = fq.gather(1, best)[:, 0]
 
         # ---- block decode at the refined start (src/wmget.cc:503-553) ----
-        raw = block_raw(x, best_pos, self.awin, self.mix_frame, self.mix_up,
-                        self.mix_dn, self.fpb, True, self.group,
-                        Params.frames_per_bit, batch=batch)
-        raw = raw[:, self.inv_order]
-        soft = 0.5 * (raw / torch.mean(torch.abs(raw), dim=1, keepdim=True)
-                      + 1.0)
+        with prof.phase("detect.extract"):
+            raw = block_raw(x, best_pos, self.awin, self.mix_frame,
+                            self.mix_up, self.mix_dn, self.fpb, True,
+                            self.group, Params.frames_per_bit, batch=batch)
+            raw = raw[:, self.inv_order]
+            soft = 0.5 * (raw / torch.mean(torch.abs(raw), dim=1,
+                                           keepdim=True) + 1.0)
         return best_pos, best_q, mean_top, eligible, soft
 
     def forward(self, samples: torch.Tensor) -> Dict[str, torch.Tensor]:

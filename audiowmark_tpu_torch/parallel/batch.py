@@ -24,6 +24,7 @@ from ..ops.detect_fused import DetectorConfig, build_detector
 from ..ops.frames import FRAME
 from ..params import Params
 from ..tables import get_key_tables
+from ..utils import prof
 from .mesh import Mesh, batch_embed_sharded, make_mesh
 
 
@@ -119,16 +120,19 @@ def detect_batch(key: Key, audio: np.ndarray, mesh: Optional[Mesh] = None,
     T = n_samples // FRAME
     cfg = DetectorConfig(n_frames=T, n_channels=C, top_k=top_k)
     detectors = {}
-    audio = np.require(audio[:, : T * FRAME], np.float32, ["C", "W"])
     per = B // n_dev
     # every device's share is enqueued before any result is read
     outs = []
     for i, dev in enumerate(devices):
         if dev not in detectors:
-            detectors[dev] = build_detector(key, cfg, dev)
-        x = torch.from_numpy(audio[i * per:(i + 1) * per]).to(
-            dev, non_blocking=True)
-        with torch.no_grad():
+            with prof.phase("fleet.build"):
+                detectors[dev] = build_detector(key, cfg, dev)
+        with prof.phase("fleet.upload"):
+            share = np.require(audio[i * per:(i + 1) * per, : T * FRAME],
+                               np.float32, ["C", "W"])
+            x = torch.from_numpy(share).to(dev, non_blocking=True)
+        with prof.phase("fleet.enqueue"), torch.no_grad():
             outs.append(detectors[dev](x))
-    return {k: np.concatenate([o[k].cpu().numpy() for o in outs])
-            for k in outs[0]}
+    with prof.phase("fleet.readback"):
+        return {k: np.concatenate([o[k].cpu().numpy() for o in outs])
+                for k in outs[0]}

@@ -34,6 +34,7 @@ from .params import Params
 from .codec.convcode import ConvBlockType, conv_code_size
 from .codec.shortcode import short_code_output_size
 from .device import DeviceLike, resolve
+from .utils import prof
 
 
 def payload_coded_bits() -> int:
@@ -101,6 +102,7 @@ def get_key_tables(key: Key) -> KeyTables:
     hit = _cache.get(cache_key)
     if hit is not None:
         return hit
+    prof.count("build.key_tables")
 
     n_bands = Params.max_band - Params.min_band + 1
     n_data = mark_data_frame_count()
@@ -170,6 +172,7 @@ def tables_to_device(tables: KeyTables,
     dev = resolve(device)
     hit = _device_cache.get((id(tables), dev))
     if hit is None:
+        prof.count("build.tables_upload")
         hit = (tables, _upload(tables, dev))
         _device_cache[(id(tables), dev)] = hit
     return hit[1]

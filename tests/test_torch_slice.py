@@ -250,7 +250,6 @@ assert port.get_watermark([Key()], d + "/wm.wav", "ab" * 16,
 from audiowmark_tpu_torch.params import Format
 from audiowmark_tpu_torch.models import chunkloader, embedder, syncfinder
 from audiowmark_tpu_torch.ops import resample, sync
-from audiowmark_tpu_torch import profile_cells
 (rng.randint(-16000, 16000, 2 * 48000 * 2).astype("<i2")
  .tofile(d + "/n48.raw"))
 Params.input_format = Format.RAW
@@ -270,7 +269,7 @@ def test_port_runs_without_jax(tmp_path):
     JAX package fails
     (30 s: one block, found by the block and the clip decoder; cmp
     returns 0 only when it matches), then the modules of the resampler,
-    the streaming add, the staged search and the profile script, and a
+    the streaming add and the staged search, and a
     2 s streaming add of raw 48 kHz input."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX, str(tmp_path)],
                           capture_output=True, text=True, cwd=REPO,
@@ -278,23 +277,3 @@ def test_port_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
     assert "\nmatch_count " in proc.stdout, proc.stdout
-
-
-def test_profile_device_time_is_the_union_of_device_intervals():
-    """profile_cells counts overlapping device intervals once, ignores
-    host events, and sums each device op's own time by name."""
-    from types import SimpleNamespace
-
-    from audiowmark_tpu_torch.profile_cells import _busy_intervals
-
-    def ev(name, start, end, dev=torch.autograd.DeviceType.CUDA):
-        return SimpleNamespace(name=name, device_type=dev,
-                               time_range=SimpleNamespace(start=start,
-                                                          end=end))
-
-    events = [ev("k", 0, 1000), ev("copy", 500, 1500), ev("k", 3000, 3500),
-              ev("host", 0, 9000, torch.autograd.DeviceType.CPU)]
-    union_ms, per_name = _busy_intervals(events)
-    assert union_ms == 2.0
-    assert per_name == {"k": 1.5, "copy": 1.0}
-    assert _busy_intervals([]) == (0.0, {})
