@@ -29,9 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-# the tracer's counter of nvcc runs and library loads: csrc/viterbi_acs.cu,
-# kernel K1, is the one source
-_COUNTER = "build.k1"
+# the tracer's counter of each source's nvcc runs and library loads, by
+# the kernel's name: K1 (csrc/viterbi_acs.cu), K2 (csrc/resample_k2.cu)
+_COUNTER = {"viterbi_acs": "build.k1", "resample_k2": "build.k2"}
 
 
 def nvcc_path() -> str:
@@ -57,11 +57,12 @@ def build(name: str) -> str:
                        "lib%s-%s.so" % (name, digest.hexdigest()[:16]))
     if os.path.exists(out):
         return out
-    prof.count(_COUNTER)
+    prof.count(_COUNTER[name])
+    nvcc = nvcc_path()            # raises before any file is made
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -85,7 +86,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         path = build(name)
-        prof.count(_COUNTER)
+        prof.count(_COUNTER[name])
         lib = ctypes.CDLL(path)
         _loaded[name] = lib
     return lib

@@ -14,27 +14,45 @@ and x zero-padded outside its support.
 Two coefficient precisions, as in the JAX package: `resample_buffer`
 computes its coefficients in float32 (as `_resample_tile`);
 `StreamingResampler` computes them in float64 and casts them to float32 (as
-the JAX package's host `_coeffs`).  Both run one formula, `_coeffs`, on the
-given device, and so do the gather and the weighted sum, one tap at a time
-in a fixed order, so output j is the same however the input was split into
-writes.
+the JAX package's host `_coeffs`).  Both go through `_resample_rows`: on a
+CUDA tensor one launch of kernel K2 (csrc/resample_k2.cu, built with nvcc
+at first use) computes each output row's position, its coefficients and
+its weighted sum on the card; on a CPU tensor `_resample_rows_plain` runs
+the same arithmetic as torch ops (`_coeffs`, then `_gather_dot`, one tap
+at a time in a fixed order).  Either way output j is the same however the
+input was split into writes.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
+from collections import Counter
 
 import numpy as np
 import torch
 
+from .. import cuda_build
 from ..io.wavdata import WavData
 from ..params import Params
+from ..utils import prof
 
 from ..device import DeviceLike, resolve
 
 HLEN = 16
-# output frames per pass: bounds the (J, n_taps) coefficient block
+# output frames per pass of the plain version: bounds the (J, n_taps)
+# coefficient block
 _TILE = 1 << 16
+_ERRORS = {-1: "half_taps is not a positive multiple of 8",
+           -2: "xpad holds fewer rows than the filter's taps",
+           -3: "xpad has no channel",
+           -4: "the row range is out of the kernel's grid"}
+
+# launches of kernel K2 by _resample_rows since the last reset, in all and
+# by card index (chip_smoke.py reads them to show that a path went through
+# the kernel, on the cards it should)
+LAUNCHES = 0
+LAUNCHES_BY_CARD: Counter = Counter()
 
 
 def _filter_params(ratio: float):
@@ -81,6 +99,96 @@ def _gather_dot(xpad: torch.Tensor, base: torch.Tensor,
     return y
 
 
+def _resample_rows(xpad: torch.Tensor, j0: int, n_rows: int, ratio: float,
+                   offset: int, coeff_dtype: torch.dtype) -> torch.Tensor:
+    """Output rows j0 .. j0 + n_rows - 1 of resampling the zero-padded
+    (rows, C) float32 input `xpad` by `ratio`: (n_rows, C) float32 on its
+    device.  Row j takes the taps xpad[base : base + n_taps] with
+    base = clamp(floor(j / ratio) + offset, 0, rows - n_taps) and the
+    coefficients of `_coeffs` at frac = j / ratio - floor(j / ratio),
+    computed in `coeff_dtype` (float64 or float32).
+
+    On a CUDA tensor one launch of kernel K2 (counted in LAUNCHES and as
+    `resample.k2`); on a CPU tensor the plain version (`resample.plain`).
+    """
+    if n_rows <= 0:
+        return xpad.new_empty((0, xpad.shape[1]))
+    if xpad.device.type == "cuda":
+        return _resample_rows_k2(xpad, j0, n_rows, ratio, offset,
+                                 coeff_dtype)
+    if xpad.device.type != "cpu":
+        raise ValueError("the resampler runs on cuda or cpu, not %s"
+                         % xpad.device)
+    prof.count("resample.plain")
+    return _resample_rows_plain(xpad, j0, n_rows, ratio, offset, coeff_dtype)
+
+
+def _resample_rows_plain(xpad: torch.Tensor, j0: int, n_rows: int,
+                         ratio: float, offset: int,
+                         coeff_dtype: torch.dtype) -> torch.Tensor:
+    """`_resample_rows` as torch ops on xpad's device: positions on the
+    host, `_coeffs` and `_gather_dot` in tiles of _TILE rows."""
+    _, _, _, n_taps = _filter_params(ratio)
+    dev = xpad.device
+    j = j0 + np.arange(n_rows, dtype=np.float64)
+    p = j / ratio
+    ip = np.floor(p)
+    np_dtype = np.float64 if coeff_dtype == torch.float64 else np.float32
+    frac = torch.from_numpy((p - ip).astype(np_dtype)).to(dev)
+    base = torch.from_numpy(np.clip(ip.astype(np.int64) + offset, 0,
+                                    xpad.shape[0] - n_taps)).to(dev)
+    out = torch.empty((n_rows, xpad.shape[1]), dtype=torch.float32,
+                      device=dev)
+    for start in range(0, n_rows, _TILE):
+        end = min(start + _TILE, n_rows)
+        out[start:end] = _gather_dot(xpad, base[start:end],
+                                     _coeffs(frac[start:end], ratio))
+    return out
+
+
+def _library() -> ctypes.CDLL:
+    lib = cuda_build.load("resample_k2")
+    lib.resample_k2_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_double,
+        ctypes.c_double, ctypes.c_double, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.resample_k2_launch.restype = ctypes.c_int
+    return lib
+
+
+def _resample_rows_k2(xpad: torch.Tensor, j0: int, n_rows: int,
+                      ratio: float, offset: int,
+                      coeff_dtype: torch.dtype) -> torch.Tensor:
+    """`_resample_rows` in one launch of K2 on xpad's card, on the current
+    stream; raises where the kernel cannot run, never falls back."""
+    global LAUNCHES
+    if xpad.dtype != torch.float32 or xpad.dim() != 2 \
+            or not xpad.is_contiguous():
+        raise ValueError("xpad must be a contiguous (rows, C) float32 "
+                         "tensor")
+    if coeff_dtype not in (torch.float32, torch.float64):
+        raise TypeError("coefficients are float32 or float64, not %s"
+                        % coeff_dtype)
+    fr, half_width, half_taps, _ = _filter_params(ratio)
+    lib = _library()
+    y = torch.empty((n_rows, xpad.shape[1]), dtype=torch.float32,
+                    device=xpad.device)
+    with torch.cuda.device(xpad.device):
+        stream = torch.cuda.current_stream(xpad.device).cuda_stream
+        err = lib.resample_k2_launch(
+            xpad.data_ptr(), xpad.shape[0], y.data_ptr(), j0, n_rows,
+            xpad.shape[1], ratio, fr, half_width, half_taps, offset,
+            int(coeff_dtype == torch.float64), stream)
+    if err != 0:
+        raise RuntimeError("resample_k2 launch failed: "
+                           + _ERRORS.get(err, "CUDA error %d" % err))
+    LAUNCHES += 1
+    LAUNCHES_BY_CARD[xpad.device.index] += 1
+    prof.count("resample.k2")
+    return y
+
+
 def resample_frames(x: torch.Tensor, ratio: float) -> torch.Tensor:
     """Resample (frames, C) float32 frames by `ratio` on x's device;
     returns (round(frames*ratio), C) there."""
@@ -100,19 +208,7 @@ def resample_frames(x: torch.Tensor, ratio: float) -> torch.Tensor:
     xpad[half_taps - 1: half_taps - 1 + in_frames] = x
     # output j centre p_j = j/ratio; the base index into xpad of tap 0 is
     # floor(p_j) - (half_taps-1) + (half_taps-1) [pad offset] = floor(p_j)
-    j = np.arange(out_frames, dtype=np.float64)
-    p = j / ratio
-    ip = np.floor(p)
-    frac = torch.from_numpy((p - ip).astype(np.float32)).to(dev)
-    base = torch.from_numpy(np.clip(ip.astype(np.int64), 0, in_frames)).to(dev)
-
-    out = torch.empty((out_frames, n_channels), dtype=torch.float32,
-                      device=dev)
-    for start in range(0, out_frames, _TILE):
-        end = min(start + _TILE, out_frames)
-        out[start:end] = _gather_dot(xpad, base[start:end],
-                                     _coeffs(frac[start:end], ratio))
-    return out
+    return _resample_rows(xpad, 0, out_frames, ratio, 0, torch.float32)
 
 
 def resample_buffer(samples: np.ndarray, n_channels: int, ratio: float,
@@ -199,7 +295,11 @@ class StreamingResampler:
         self.write_frames(
             np.zeros((self.n_taps // 2) * self.n_channels, dtype=np.float32))
 
-    def _produce(self):
+    def _plan(self):
+        """(n_new, pad_lo, pad_hi): the output rows computable from the
+        input written so far, and the zero rows the history needs before
+        and after it for their taps.  floor(j / ratio) is monotone in j, so
+        the first and last new rows bound the taps of every row between."""
         # output j needs input taps up to floor(j/ratio) + half_taps; it is
         # computable once that index is <= in_total - 1, i.e.
         # j * old_rate < (in_total - half_taps) * new_rate (exact integers)
@@ -207,28 +307,35 @@ class StreamingResampler:
         max_out = (avail - 1) // self.old_rate + 1 if avail > 0 else 0
         n_new = max_out - self.next_out
         if n_new <= 0:
+            return 0, 0, 0
+        lo = self._first_tap(self.next_out)
+        hi = self._first_tap(max_out - 1)
+        return (n_new, max(0, -lo),
+                max(0, hi + self.n_taps - self.hist.shape[0]))
+
+    def _first_tap(self, j: int) -> int:
+        """Index into the history of output j's first tap (j / ratio in
+        float64, as the kernel and the plain version divide)."""
+        return math.floor(j / self.ratio) - (self.half_taps - 1) \
+            - self.hist_start
+
+    def _produce(self):
+        n_new, pad_lo, pad_hi = self._plan()
+        if n_new <= 0:
             return
-        j = self.next_out + np.arange(n_new, dtype=np.float64)
-        p = j / self.ratio
-        ip = np.floor(p)
-        frac = p - ip
-        base = ip.astype(np.int64) - (self.half_taps - 1) - self.hist_start
         # pad the history so negative bases (start of stream) read zeros
-        pad_lo = max(0, -int(base.min()))
-        pad_hi = max(0, int(base.max()) + self.n_taps - self.hist.shape[0])
-        xp = torch.nn.functional.pad(self.hist, (0, 0, pad_lo, pad_hi))
-        base_dev = torch.from_numpy(base + pad_lo).to(self.device)
-        frac_dev = torch.from_numpy(frac).to(self.device)
-        ys = [_gather_dot(xp, base_dev[s:s + _TILE],
-                          _coeffs(frac_dev[s:s + _TILE], self.ratio))
-              for s in range(0, n_new, _TILE)]
-        self.out_buffer = torch.cat([self.out_buffer] +
-                                    [y.reshape(-1) for y in ys])
-        self.next_out = max_out
+        xp = self.hist
+        if pad_lo or pad_hi:
+            xp = torch.nn.functional.pad(xp, (0, 0, pad_lo, pad_hi))
+        y = _resample_rows(xp, self.next_out, n_new, self.ratio,
+                           pad_lo - (self.half_taps - 1) - self.hist_start,
+                           torch.float64).reshape(-1)
+        self.out_buffer = (torch.cat([self.out_buffer, y])
+                           if self.out_buffer.shape[0] else y)
+        self.next_out += n_new
         # drop history no longer needed
-        min_base = int(np.floor(self.next_out / self.ratio)) \
-            - (self.half_taps - 1)
-        drop = min(max(0, min_base - self.hist_start), self.hist.shape[0])
+        drop = min(max(0, self._first_tap(self.next_out)),
+                   self.hist.shape[0])
         if drop > 0:
             self.hist = self.hist[drop:]
             self.hist_start += drop

@@ -13,7 +13,8 @@ command line, the benchmark's traced run) switches it on.  Then
   that waits for all the enqueued device work);
 * every `prof.count(name)` adds to `counters[name]`: the builds of what
   the program caches (`build.key_tables`, `build.tables_upload`,
-  `build.viterbi_decoder`, `build.k1`, `build.detector`).
+  `build.viterbi_decoder`, `build.k1`, `build.k2`, `build.detector`), and
+  the resampler's writes by route (`resample.k2`, `resample.plain`).
 
 Span names are `<path>.<stage>` (`add.read`, `get.extract`, `fleet.enqueue`,
 `detect.refine`, ...); spans that one metric adds together are siblings,

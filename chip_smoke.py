@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (audiowmark_tpu_torch) on one card.
 
-    python3 chip_smoke.py              # phases 1-25, one card
+    python3 chip_smoke.py              # phases 1-25 and 27, one card
+    python3 chip_smoke.py --new-only   # phases 1, 2 and 27, one card
     python3 chip_smoke.py --cards 4    # phases 1, 2 and 26, four cards
 
 Drives the port's main path as a user calls it — add_watermark, then
@@ -9,8 +10,8 @@ get_watermark as `cmp` — on deterministic 16-bit stereo noise at 44.1 kHz
 (the CLI's test-gen-noise), at the full production geometry:
 
   1. environment: card, power limit, torch/CUDA versions, matmul precision;
-  2. build kernel K1 (csrc/viterbi_acs.cu) with nvcc, time the build and
-     print ptxas's registers and spills;
+  2. build kernels K1 (csrc/viterbi_acs.cu) and K2 (csrc/resample_k2.cu)
+     with nvcc, time each build and print ptxas's registers and spills;
   3. K1 vs its plain PyTorch version on the card at 143 steps and B = 1,
      16 and 52, on clean codewords (exact ties), an all-NaN row and random
      rows (random rows only at B = 1): packed decisions, the decisions
@@ -183,10 +184,33 @@ rows, the in-process gets of phase 22, the gets of phase 24, everything
 phase 25 runs on the card) has
 K1's launch count reset to 0 just before it and read just after: each must
 be above 0.  The kernels line gives their sum as `launches` and each of
-them in `launches_by_path`.
+them in `launches_by_path`.  So does K2's count on each path that
+resamples (the 32 kHz add and get, the resample to 48 kHz, the 48 kHz
+get, the speed gets, and the card's add and get of each file of phase 25
+at another rate than 44.1 kHz, the 48 kHz streaming add among them): reset
+just before, above 0 just after, and in K2's entry of the kernels line as
+`launches` and `launches_by_path`.
 
-`python3 chip_smoke.py --new-only` runs phases 1, 2 (and the small check
-of 4) and 25 alone; it prints no kernels line.
+Phase 27 (k2): kernel K2 against its plain version on the card
+(`ops/resample._resample_rows_k2` / `_resample_rows_plain`, same
+arguments) at the ratios 48 -> 44.1 kHz (48 taps), 44.1 -> 48 kHz (32) and
+a speed scan's centre 0.49 (80), each with float64
+coefficients (rows an hour into a stream) and float32 (rows from 0), at 1,
+3, 1001, 65613 and 4096 x 1024 input frames: the largest difference (at
+most 1e-6, the card test's tolerance) and the rows that differ (each check
+a line); both writes of a 4096-frame tile of the 48 kHz add timed with
+CUDA events, K2 against the plain version and against K2's bound, the
+larger of its bytes (at 3.35 TB/s) and its FP64 instructions (counted in
+the SASS of its float64 kernel by cuobjdump, at 64 per SM and clock at the
+card's largest SM clock), and their sum per second of audio; the
+streaming resampler
+on the card over 20 s of noise at 48 -> 44.1 and 44.1 -> 48 kHz in one
+write and in seeded writes of 1 frame up, bit for bit, and against the
+CPU's.  The kernels line gives K2 after K1, with its launches on the other
+phases' paths (`launches`) and in phase 27's checks (`check_launches`).
+
+`python3 chip_smoke.py --new-only` runs phases 1, 2 and 27 alone; it
+prints no kernels line.
 
 `python3 chip_smoke.py --cards 4` runs phases 1, 2 and 26 on exactly four
 cards (an even N >= 2 cards in general; it fails on a machine with another
@@ -195,16 +219,20 @@ count) and prints every card's nvidia-smi line:
  26. cards: the paths that split work over the cards, each called on all
      cards and with AUDIOWMARK_MULTICHIP=0 (one card) in the order one,
      all, all, one, every result equal to the first one-card call's, with
-     the walls of each call, K1's launches per card and the peak of
-     allocated memory per card in the first call of each: K1 against its
-     plain version on every card at 143 steps and B = 1, 8, 24 and 256,
-     bit for bit, timed with CUDA events on its card; cmp of the 32-min
+     the walls of each call, K1's and K2's launches per card and the peak
+     of allocated memory per card in the first call of each: K1 against
+     its plain version on every card at 143 steps and B = 1, 8, 24 and
+     256, bit for bit, timed with CUDA events on its card; K2 against its
+     plain version on every card (phase 27's check at 48 -> 44.1 kHz with
+     float64 coefficients and at a speed scan's centre with float32 ones),
+     each launch counted on its card; cmp of the 32-min
      marked file in 6-min chunks (8 chunks: the chunk-group search, groups
      of four, a row per card) and in 30-min chunks, stdout byte-equal;
      cmp --detect-speed and --detect-speed-patient of the 30 s file played
      at 0.9764, stdout equal and the scans' centres split over the cards
-     in contiguous shares (with the host's seconds inside each card's
-     centres, beside the scans' walls); watermark_batch of phase 16's
+     in contiguous shares, K2 launched on every card (on card 0 alone
+     with one card), with the host's seconds inside each card's centres,
+     beside the scans' walls; watermark_batch of phase 16's
      streams on the (4, 1) mesh and, padded by one frame to an even frame
      count, on the (2, 2) mesh, 0 samples apart from the (1, 1) call;
      detect_batch over the cards, every array equal, K1 launched once on
@@ -214,7 +242,8 @@ count) and prints every card's nvidia-smi line:
      --expect-matches 5, get --json, cmp --detect-speed[-patient]) with
      and without AUDIOWMARK_MULTICHIP=0: the marked file's bytes, stdout
      and the JSON text equal.  The kernels line gives K1's launches on the
-     paths by card and by path, and its time on every card.
+     paths by card and by path, and its time on every card; and K2's
+     launches in the speed scans by card and by path.
 
 Any failed check raises: the script exits non-zero and prints no result.
 Without a CUDA device it exits 1 before any work.  On success the line
@@ -226,6 +255,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -288,6 +318,23 @@ def launches_of(path, fn):
     launches = viterbi.LAUNCHES
     check(launches > 0, "%s never launched K1" % path)
     return result, launches
+
+
+# K2's launches on each path that resamples, by the path's name (the kernels
+# line's `launches_by_path` of K2)
+K2_PATHS = {}
+
+
+def k2_launches_of(path, fn):
+    """fn(), with K2's launch count reset just before it; the count must be
+    above 0 just after and is kept as K2_PATHS[path].  Not nested: each
+    path resets the one count."""
+    from audiowmark_tpu_torch.ops import resample
+    resample.LAUNCHES = 0
+    result = fn()
+    K2_PATHS[path] = resample.LAUNCHES
+    check(K2_PATHS[path] > 0, "%s never launched K2" % path)
+    return result
 
 
 def k1_check(seed, batch, steps, device="cuda"):
@@ -426,7 +473,8 @@ def samples_apart(a, b, what):
 
 def phase_resample(port, key, d, smi):
     """9. 200 s at 32 kHz: add, cmp; resample to 48 kHz on the card, cmp.
-    Returns K1's launches on each of the two paths."""
+    Returns K1's launches on each of the two paths; K2's on each of the
+    four go to K2_PATHS."""
     from audiowmark_tpu_torch.io.wavdata import WavData
     from audiowmark_tpu_torch.fixtures import gen_noise
     from audiowmark_tpu_torch.ops.resample import resample
@@ -435,13 +483,22 @@ def phase_resample(port, key, d, smi):
     t0 = time.perf_counter()
     gen_noise(key, n32, 200, 32000)
     fixture_s = time.perf_counter() - t0
-    (add_s, get32_s, _), n32k = launches_of(
-        "the 32 kHz path", lambda: add_and_cmp(port, key, n32, wm32, 5))
+
+    def path_32k():
+        add_s = k2_launches_of("add_32k",
+                               lambda: add(port, key, n32, wm32))[0]
+        _, get_s, _ = k2_launches_of("get_32k",
+                                     lambda: cmp(port, key, wm32, 5))
+        return add_s, get_s
+
+    (add_s, get32_s), n32k = launches_of("the 32 kHz path", path_32k)
     t0 = time.perf_counter()
-    resample(WavData.load(wm32), 48000).save(wm48)
+    k2_launches_of("resample_to_48k", lambda: resample(WavData.load(wm32),
+                                                       48000).save(wm48))
     resample_s = time.perf_counter() - t0
     (_, get48_s, _), n48k = launches_of(
-        "the 48 kHz get", lambda: cmp(port, key, wm48, 5))
+        "the 48 kHz get",
+        lambda: k2_launches_of("get_48k", lambda: cmp(port, key, wm48, 5)))
     phase("resample", match_count_32k=5, match_count_48k=5,
           fixture_s=fixture_s, add_32k_s=add_s, get_32k_s=get32_s,
           resample_to_48k_s=resample_s, get_48k_s=get48_s,
@@ -723,7 +780,8 @@ def phase_speed(port, key, d, smi):
         return fields
 
     (fields, shapes), launches = launches_of(
-        "the speed gets", lambda: batches_of(gets))
+        "the speed gets",
+        lambda: k2_launches_of("speed_gets", lambda: batches_of(gets)))
     # every get launches K1 twice: the decodes at its speed, then at speed 1
     # (once where no speed was found)
     check(launches == len(shapes) == 2 * len(JAX_DETECT) + 1,
@@ -1997,12 +2055,16 @@ def channel_card(d, channels, rate, seconds):
     # unknown-length add of its raw PCM, which the CPU repeats (a
     # known-length add at another rate pads its last tile to 4096 frames,
     # minutes of audio through the CPU's resampler), and cmp
+    # (at another rate than 44.1 kHz both go through K2, counted apart)
+    counted = k2_launches_of if rate != 44100 else (lambda path, fn: fn())
     marked = os.path.join(d, "ch_%s_marked.wav" % tag)
-    r["add_s"], info = add_on(None, wav, marked)
+    r["add_s"], info = counted("channels_%s_add" % tag,
+                               lambda: add_on(None, wav, marked))
     r["data_blocks"] = info_line(info, "Data Blocks")
     unknown = os.path.join(d, "ch_%s_unknown_lim.wav" % tag)
     add_on(None, raw, unknown, fmt)
-    rc, text, r["get_s"] = get_on(None, marked)
+    rc, text, r["get_s"] = counted("channels_%s_get" % tag,
+                                   lambda: get_on(None, marked))
     r["match_count"] = matches(text)
     check(rc == 0 and r["match_count"] >= 1, "%s: cmp on the card: exit "
           "%d:\n%s" % (tag, rc, text))
@@ -2185,6 +2247,211 @@ def phase_channels(d, smi):
     return launches
 
 
+# ---- 27. kernel K2, the resampler's rows --------------------------------------
+
+# (old rate, new rate) of the ratios K2 is checked at: the pair of the 48 kHz
+# add (48 and 32 taps) and a speed scan's centre 0.98 / 2 (80 taps, the
+# kernel's generic form), whose rate pair is only named by its ratio
+K2_RATIOS = ((48000, 44100), (44100, 48000), (100, 49))
+# input frames of a write: 1 frame, odd sizes, one across the plain
+# version's 64 K-row tiles, and the 4096-frame tile of the known-length
+# streaming add (4096 x 1024 frames, 87.4 s at 48 kHz)
+K2_TILE = 4096 * 1024
+K2_SIZES = (1, 3, 1001, 65613, K2_TILE)
+K2_STREAM_SECONDS = 20
+
+
+def k2_args(old, new, coeff_dtype, n_in):
+    """(ratio, j0, n_rows, offset) of a write of n_in frames: for the
+    streaming resampler's float64 coefficients, rows an hour into a stream
+    whose first row's taps start at xpad[0]; for resample_frames' float32
+    ones, the rows from 0 as it asks for them."""
+    ratio = new / old
+    n_rows = max(1, int(n_in * ratio))
+    if coeff_dtype == torch.float64:
+        j0 = 3600 * new + 12345
+        return ratio, j0, n_rows, -int(np.floor(j0 / ratio))
+    return ratio, 0, n_rows, 0
+
+
+# FP64 instructions an H100 (sm_90) issues per SM and clock: its 64 FP64
+# lanes per SM (33.5 TFLOPS of FMA at 132 SMs and 1.98 GHz)
+FP64_PER_SM_CLOCK = 64
+# the taps K2 takes in one pass (csrc/resample_k2.cu, kChunk)
+K2_CHUNK = 16
+
+
+def is_fp64(op):
+    """Whether a SASS opcode runs on the FP64 units (arithmetic, compares,
+    the reciprocal seed of a division, rounding and conversions)."""
+    base = op.split(".")[0]
+    return base in ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET") or (
+        base in ("MUFU", "FRND", "F2F", "F2I", "I2F") and "64" in op)
+
+
+def k2_fp64_per_pass():
+    """The FP64 instructions in the SASS of K2's float64 kernel, by
+    cuobjdump: one pass of a row over K2_CHUNK taps (their coefficients:
+    a sin, two cos, two divisions each), with the row's own position and
+    the called slow paths of sin, cos and division once each."""
+    from audiowmark_tpu_torch import cuda_build
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", cuda_build.build("resample_k2")],
+                          capture_output=True, text=True, check=True).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = "resample_k2IdE" in line     # resample_k2<double>
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                     line)
+        count += bool(inside and m and is_fp64(m.group(1)))
+    check(count > 0, "no FP64 instruction in K2's float64 kernel's SASS")
+    return count
+
+
+def fp64_per_ms():
+    """FP64 instructions card 0 issues per millisecond at its largest SM
+    clock: every SM's FP64 lanes, every clock."""
+    mhz = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * FP64_PER_SM_CLOCK * float(mhz) * 1e3
+
+
+def k2_bound(xpad, got, n_taps, fp64_per_pass):
+    """K2's least time (ms) for a write: the larger of its bytes (the
+    input read once, the output written once, at 3.35 TB/s) and its FP64
+    instructions (rows x n_taps / K2_CHUNK passes, each fp64_per_pass; this
+    counts the row's own position and the slow paths' code once a pass, not
+    once a row or never, a few per cent high, and the reciprocal seeds and
+    conversions at the rate of a multiply-add, which they are slower than)
+    at the card's FP64 rate.  Returns (ms, "bytes" or "fp64", both)."""
+    both = dict(bytes_ms=(xpad.numel() + got.numel()) * 4 / 3.35e12 * 1e3,
+                fp64_ms=got.shape[0] * n_taps / K2_CHUNK * fp64_per_pass
+                / fp64_per_ms())
+    by = max(both, key=both.get)
+    return both[by], by[:-3], both
+
+
+def k2_check(old, new, coeff_dtype, n_in, rng, timed=None, device="cuda"):
+    """K2 against the plain version on `device`, on seeded noise: the
+    largest absolute difference and the rows that differ; with `timed`
+    (K2's FP64 instructions a pass), both timed with CUDA events beside
+    K2's bound (k2_bound)."""
+    from audiowmark_tpu_torch.ops import resample
+    ratio, j0, n_rows, offset = k2_args(old, new, coeff_dtype, n_in)
+    n_taps = resample._filter_params(ratio)[3]
+    xpad = torch.from_numpy(((rng.rand(n_in + n_taps, 2) * 2 - 1) * 0.9)
+                            .astype(np.float32)).to(device)
+    args = (xpad, j0, n_rows, ratio, offset, coeff_dtype)
+    got = resample._resample_rows_k2(*args)
+    want = resample._resample_rows_plain(*args)
+    torch.cuda.synchronize(xpad.device)
+    diff = (got - want).abs()
+    # one formula op for op on both sides: 0 apart on the card so far; the
+    # card test's tolerance (tests/test_torch_cuda.py) is the limit
+    check(float(diff.max()) <= 1e-6, "K2 is %g from the plain version at "
+          "%d -> %d, %s, %d frames" % (float(diff.max()), old, new,
+                                       coeff_dtype, n_in))
+    r = dict(old=old, new=new, coeff="f64" if coeff_dtype == torch.float64
+             else "f32", taps=n_taps, in_frames=n_in, rows=n_rows,
+             max_abs_err=float(diff.max()),
+             rows_differ=int((diff.amax(dim=1) > 0).sum()))
+    if timed:
+        r["ms"] = cuda_ms(lambda: resample._resample_rows_k2(*args), 20)
+        r["plain_ms"] = cuda_ms(
+            lambda: resample._resample_rows_plain(*args), 2)
+        r["bound_ms"], r["bound_by"], both = k2_bound(xpad, got, n_taps,
+                                                       timed)
+        r.update(both)
+        r["share"] = r["bound_ms"] / r["ms"]
+    return r
+
+
+def k2_stream(old, new, rng):
+    """The streaming resampler on the card over K2_STREAM_SECONDS of noise:
+    one write against seeded writes of 1 frame to 64 K frames (bit for
+    bit), and against the CPU's plain version over the same writes."""
+    from audiowmark_tpu_torch.ops.resample import StreamingResampler
+    n = K2_STREAM_SECONDS * old
+    x = ((rng.rand(n * 2) * 2 - 1) * 0.9).astype(np.float32)
+    cuts = np.unique(np.concatenate([[0, 1, 2, 3, n], rng.randint(
+        4, n, 30)]))
+
+    def run(dev, bounds):
+        res = StreamingResampler(2, old, new, dev)
+        outs = []
+        for lo, hi in zip(bounds, bounds[1:]):
+            res.write_frames(x[2 * lo:2 * hi])
+            outs.append(res.read_frames(res.can_read_frames()).cpu())
+        res.write_trailing_frames()
+        outs.append(res.read_frames(res.can_read_frames()).cpu())
+        return torch.cat(outs)
+
+    one = run("cuda", [0, n])
+    pieces = run("cuda", list(cuts))
+    cpu = run("cpu", list(cuts))
+    check(torch.equal(one, pieces), "K2's stream %d -> %d differs by how it "
+          "was written" % (old, new))
+    return dict(old=old, new=new, writes=len(cuts) - 1,
+                split_max_abs_err=float((one - pieces).abs().max()),
+                cpu_max_abs_err=float((pieces - cpu).abs().max()))
+
+
+def phase_k2(smi):
+    """27. K2 against the plain version on the card, at every ratio of
+    K2_RATIOS, both coefficient precisions and every size of K2_SIZES,
+    the tile-sized writes of the 48 kHz add timed; the streaming resampler
+    on the card split into writes and in one.  Returns the kernels line's
+    entry for K2."""
+    from audiowmark_tpu_torch.ops import resample
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(27)
+    launches0 = resample.LAUNCHES
+    checks = []
+    for old, new in K2_RATIOS:
+        for coeff_dtype in (torch.float64, torch.float32):
+            for n_in in K2_SIZES:
+                checks.append(k2_check(old, new, coeff_dtype, n_in, rng))
+    # the writes of one 4096-frame tile of the 48 kHz add: 48 -> 44.1 kHz
+    # of its input, 44.1 -> 48 kHz of its watermark
+    per_pass = k2_fp64_per_pass()
+    timed = [k2_check(48000, 44100, torch.float64, K2_TILE, rng, per_pass),
+             k2_check(44100, 48000, torch.float64, K2_TILE * 44100 // 48000,
+                      rng, per_pass)]
+    streams = [k2_stream(48000, 44100, rng), k2_stream(44100, 48000, rng)]
+    audio_s = K2_TILE / 48000
+    per_audio_s = {k: sum(t[k] for t in timed) / audio_s for k in (
+        "ms", "plain_ms", "bound_ms", "bytes_ms", "fp64_ms")}
+    max_err = max(c["max_abs_err"] for c in checks + timed)
+    for c in checks:
+        phase("k2_check", card=smi, **c)
+    phase("k2", checks=len(checks), max_abs_err=max_err,
+          rows_differ=sum(c["rows_differ"] for c in checks + timed),
+          tile_writes=timed, per_audio_s=per_audio_s, streams=streams,
+          fp64_per_pass=per_pass, seconds=time.perf_counter() - t_phase,
+          card=smi)
+    return {
+        "name": "resample_k2",
+        "route": "cuda",
+        "source": "audiowmark_tpu_torch/csrc/resample_k2.cu",
+        "replaces": None,
+        "check_launches": resample.LAUNCHES - launches0,
+        "max_abs_err": max_err,
+        "ms": timed[0]["ms"],
+        "plain_ms": timed[0]["plain_ms"],
+        "bound_ms": timed[0]["bound_ms"],
+        "bound_by": timed[0]["bound_by"],
+        "library_ms": None,
+        "share": timed[0]["share"],
+        "fp64_per_pass": per_pass,
+        "tile_writes": timed,
+        "per_audio_s": per_audio_s,
+    }
+
+
 # ---- 26. the paths that split over several cards (--cards N) ----------------
 
 CARDS_K1_BATCHES = (1, 8, 24, 256)
@@ -2212,8 +2479,9 @@ def one_and_all(n, fn, same, what):
     calls are the first of their kind in the process, the last two warm.
     Every result must equal the one-card call's (`same(a, b)`).  Returns
     (the one-card result, the fields: wall s first and warm, and per card
-    K1's launches and the peak of allocated memory in each first call)."""
-    from audiowmark_tpu_torch.ops import viterbi
+    K1's and K2's launches and the peak of allocated memory in each first
+    call)."""
+    from audiowmark_tpu_torch.ops import resample, viterbi
     fields, results = {}, {}
     try:
         for i, where in enumerate(("one", "all", "all", "one")):
@@ -2221,6 +2489,7 @@ def one_and_all(n, fn, same, what):
             run = "first" if i < 2 else "warm"
             sync_cards(n)
             viterbi.LAUNCHES_BY_CARD.clear()
+            resample.LAUNCHES_BY_CARD.clear()
             for c in range(n):
                 torch.cuda.reset_peak_memory_stats(c)
             t0 = time.perf_counter()
@@ -2230,6 +2499,8 @@ def one_and_all(n, fn, same, what):
             if run == "first":
                 fields[where + "_k1_by_card"] = [
                     viterbi.LAUNCHES_BY_CARD[c] for c in range(n)]
+                fields[where + "_k2_by_card"] = [
+                    resample.LAUNCHES_BY_CARD[c] for c in range(n)]
                 fields[where + "_peak_bytes_by_card"] = [
                     torch.cuda.max_memory_allocated(c) for c in range(n)]
             check(same(results.setdefault("one", result), result),
@@ -2260,6 +2531,28 @@ def cards_k1(n, smi):
             {k: ck[k] for k in ("batch", "steps", "cluster", "ms", "plain_ms",
                                 "bound_ms", "share", "max_abs_err")}
             for ck in checks])
+    return by_card
+
+
+def cards_k2(n, smi):
+    """26a. K2 against its plain version on every card (phase 27's check,
+    on that card) at 48 -> 44.1 kHz with float64 coefficients and at a
+    speed scan's centre with float32 ones, each launch counted on its
+    card."""
+    from audiowmark_tpu_torch.ops import resample
+    rng = np.random.RandomState(26)
+    by_card = []
+    for c in range(n):
+        resample.LAUNCHES_BY_CARD.clear()
+        checks = [k2_check(48000, 44100, torch.float64, 65613, rng,
+                           device=torch.device("cuda", c)),
+                  k2_check(100, 49, torch.float32, 65613, rng,
+                           device=torch.device("cuda", c))]
+        check(dict(resample.LAUNCHES_BY_CARD) == {c: len(checks)},
+              "K2 on cuda:%d launched on %s" % (
+                  c, dict(resample.LAUNCHES_BY_CARD)))
+        by_card.append(checks)
+        phase("cards_k2", card_index=c, card=smi[c], checks=checks)
     return by_card
 
 
@@ -2369,6 +2662,10 @@ def cards_speed(port, key, d, n, smi):
                       "the centres split over the cards as %s" % s)
             check(all(s[1:] == [0] * (n - 1) for s in seen["one"]),
                   "one card's scan split its centres: %s" % seen["one"])
+            check(all(f["all_k2_by_card"]) and f["one_k2_by_card"][0]
+                  and not any(f["one_k2_by_card"][1:]),
+                  "the resampler's K2 launches by card: %s on %d cards, %s "
+                  "on one" % (f["all_k2_by_card"], n, f["one_k2_by_card"]))
             fields[option] = dict(f, detect_speed=line[0],
                                   centres_by_card=seen["all"],
                                   warm_host=host)
@@ -2510,7 +2807,7 @@ def cards_cli(d, n, smi):
 
 def phase_cards(port, n, smi):
     """26. every path of the port that splits over cards, on n cards
-    against one.  Returns the kernels line's entry."""
+    against one.  Returns the kernels line's entries, K1's and K2's."""
     from audiowmark_tpu_torch.crypto.keys import Key
     from audiowmark_tpu_torch.fixtures import gen_noise, long_noise
     from audiowmark_tpu_torch.io.wavdata import WavData
@@ -2518,6 +2815,7 @@ def phase_cards(port, n, smi):
     from audiowmark_tpu_torch.ops.resample import resample_ratio
     t_phase = time.perf_counter()
     by_card = cards_k1(n, smi)
+    k2_by_card = cards_k2(n, smi)
 
     key = Key()
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as d:
@@ -2550,11 +2848,16 @@ def phase_cards(port, n, smi):
                 launches = [a + b for a, b in zip(launches,
                                                   f["all_k1_by_card"])]
     check(all(launches), "K1 never launched on some card: %s" % launches)
+    # K2 on the paths that resample on several cards: the speed scans
+    k2_flat = {"speed_" + sub: f["all_k2_by_card"]
+               for sub, f in paths["speed"].items()}
+    k2_launches = [sum(col) for col in zip(*k2_flat.values())]
     phase("cards", cards=n, k1_launches_by_card=launches,
-          k1_launches_by_path=flat, cli_s=cli,
+          k1_launches_by_path=flat, k2_launches_by_card=k2_launches,
+          k2_launches_by_path=k2_flat, cli_s=cli,
           seconds=time.perf_counter() - t_phase, card=smi)
     headline = by_card[0][-1]
-    return {
+    return [{
         "name": "viterbi_acs",
         "route": "cuda",
         "source": "audiowmark_tpu_torch/csrc/viterbi_acs.cu",
@@ -2573,7 +2876,17 @@ def phase_cards(port, n, smi):
         "steps": headline["steps"],
         "by_card": [{str(c["batch"]): c["ms"] for c in checks}
                     for checks in by_card],
-    }
+    }, {
+        "name": "resample_k2",
+        "route": "cuda",
+        "source": "audiowmark_tpu_torch/csrc/resample_k2.cu",
+        "replaces": None,
+        "launches": sum(k2_launches),
+        "launches_by_card": k2_launches,
+        "launches_by_path": k2_flat,
+        "max_abs_err": max(c["max_abs_err"] for checks in k2_by_card
+                           for c in checks),
+    }]
 
 
 def main_path(port, key, d, n200, wm200, smi):
@@ -2664,7 +2977,7 @@ def main() -> int:
     from audiowmark_tpu_torch.crypto.keys import Key
     from audiowmark_tpu_torch import cuda_build
     from audiowmark_tpu_torch.fixtures import gen_noise
-    from audiowmark_tpu_torch.ops import frames, viterbi
+    from audiowmark_tpu_torch.ops import frames, resample, viterbi
 
     # ---- 1. environment ----
     name = torch.cuda.get_device_name(0)
@@ -2690,20 +3003,34 @@ def main() -> int:
              if "registers" in line or "spill" in line]
     phase("build", kernel="viterbi_acs", seconds=time.perf_counter() - t0,
           library=os.path.relpath(lib_path, REPO), ptxas=ptxas)
+    t0 = time.perf_counter()
+    lib_path = cuda_build.build("resample_k2")
+    resample._library()
+    ptxas = [line.split("info    :")[-1].strip() for line in
+             cuda_build.ptxas_report("resample_k2").splitlines()
+             if "registers" in line or "spill" in line]
+    phase("build", kernel="resample_k2", seconds=time.perf_counter() - t0,
+          library=os.path.relpath(lib_path, REPO), ptxas=ptxas)
 
     if n_cards:
         # ---- 26. the paths that split over the cards ----
-        kernel = phase_cards(port, n_cards, smi_all)
+        kernels = phase_cards(port, n_cards, smi_all)
         phase("total", seconds=time.perf_counter() - t_script, card=smi_all)
-        print(json.dumps({"kernels": [kernel]}), flush=True)
+        print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
+    if new_only:
+        # ---- 27. K2 against its plain version ----
+        phase_k2(smi)
+        phase("total", seconds=time.perf_counter() - t_script, card=smi)
+        return 0
+
     # ---- 3. K1 vs plain on the card ----
     checks = []
-    for batch in () if new_only else K1_BATCHES:
+    for batch in K1_BATCHES:
         checks.append(k1_check(batch, batch, K1_STEPS))
         phase("k1_check", decisions_differ=0, card=smi, **checks[-1])
 
@@ -2728,41 +3055,37 @@ def main() -> int:
     key = Key()
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as d:
         t0 = time.perf_counter()
-        for secs in () if new_only else (200, 60, 30):
+        for secs in (200, 60, 30):
             gen_noise(key, os.path.join(d, "n%d.wav" % secs), secs, 44100)
         phase("fixtures", seconds=time.perf_counter() - t0)
 
-        if new_only:
-            paths = {"channels": phase_channels(d, smi)}
-        else:
-            paths, main_check, prep_ms, cli_s = earlier_phases(
-                port, key, d, smi, checks)
-            # ---- 16.-19. the fleet API, groups and prefetch, HLS, the
-            # trace ----
-            paths["fleet"], fleet_check, marked = phase_fleet(key, smi)
-            checks.append(fleet_check)
-            paths["group"] = phase_group(port, key, d, marked, smi)
-            del marked
-            paths["hls"] = phase_hls(port, key, d, smi)
-            phase_profile(d, smi)
+        paths, main_check, prep_ms, cli_s = earlier_phases(
+            port, key, d, smi, checks)
+        # ---- 16.-19. the fleet API, groups and prefetch, HLS, the trace ----
+        paths["fleet"], fleet_check, marked = phase_fleet(key, smi)
+        checks.append(fleet_check)
+        paths["group"] = phase_group(port, key, d, marked, smi)
+        del marked
+        paths["hls"] = phase_hls(port, key, d, smi)
+        phase_profile(d, smi)
 
-            # ---- 20.-21. the command line's modes, the codec-free BER
-            # rows ----
-            paths["modes"] = phase_modes(port, d, smi, checks)
-            paths["ber"] = phase_ber(d, smi)
+        # ---- 20.-21. the command line's modes, the codec-free BER rows ----
+        paths["modes"] = phase_modes(port, d, smi, checks)
+        paths["ber"] = phase_ber(d, smi)
 
-            # ---- 22.-24. the shell's streams, the strength sweep, the
-            # time to first byte ----
-            paths["streams"] = phase_streams(d, smi)
-            phase_quality(d, smi)
-            paths["ttfb"] = phase_ttfb(d, smi, cli_s)
+        # ---- 22.-24. the shell's streams, the strength sweep, the time to
+        # first byte ----
+        paths["streams"] = phase_streams(d, smi)
+        phase_quality(d, smi)
+        paths["ttfb"] = phase_ttfb(d, smi, cli_s)
 
-            # ---- 25. other channel counts and rates ----
-            paths["channels"] = phase_channels(d, smi)
+        # ---- 25. other channel counts and rates ----
+        paths["channels"] = phase_channels(d, smi)
+
+        # ---- 27. K2 against its plain version ----
+        k2 = phase_k2(smi)
 
     phase("total", seconds=time.perf_counter() - t_script, card=smi)
-    if new_only:
-        return 0
 
     # the headline numbers are those at the main path's largest batch
     print(json.dumps({"kernels": [{
@@ -2787,7 +3110,8 @@ def main() -> int:
             "batch", "steps", "cluster", "ms", "plain_ms", "bound_ms",
             "share")},
         "checks": checks,
-    }]}), flush=True)
+    }, dict(k2, launches=sum(K2_PATHS.values()),
+            launches_by_path=K2_PATHS)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

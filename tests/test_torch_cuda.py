@@ -3,7 +3,9 @@ the streaming resampler, the 48 kHz streaming add, the staged search and
 a speed scan on the card vs the port on the CPU; the command line on the
 card; the fleet API (watermark_batch, detect_batch) card vs CPU and K1 at
 its batch of 256 rows; the add's delta of every tile size of the
-unknown-length add's ramp against one call on 4096 frames, bit for bit.
+unknown-length add's ramp against one call on 4096 frames, bit for bit;
+kernel K2 vs the resampler's plain rows on the card, and the streaming
+resampler on the card written in one piece and in many.
 
 Every test here needs the card and skips without one.  This file imports
 no jax and nothing of the JAX package, so it runs where jax is absent,
@@ -210,6 +212,61 @@ def test_resampler_on_card_matches_cpu():
         outs.append((np.concatenate(got), counts))
     assert outs[0][1] == outs[1][1]
     np.testing.assert_allclose(outs[0][0], outs[1][0], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("coeff_dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ratio", [44100 / 48000, 48000 / 44100, 0.98 / 2])
+def test_k2_matches_plain_rows_on_card(ratio, coeff_dtype):
+    """K2 vs the plain rows on the card at 48, 32 and 80 taps, an hour
+    into a stream and across the plain version's 64 K-row tiles: one
+    launch, counted, and the largest difference printed (the aim is 0: one
+    formula, op for op)."""
+    from audiowmark_tpu_torch.ops import resample
+    from audiowmark_tpu_torch.utils import prof
+    n_taps = resample._filter_params(ratio)[3]
+    rng = np.random.RandomState(17)
+    xpad = torch.from_numpy(((rng.rand(70000 + n_taps, 2) * 2 - 1) * 0.9)
+                            .astype(np.float32)).cuda()
+    j0 = 3600 * 44100 + 7
+    args = (xpad, j0, int(70000 * ratio), ratio,
+            -int(np.floor(j0 / ratio)), coeff_dtype)
+    before = resample.LAUNCHES
+    prof.reset()
+    prof.enabled = True
+    try:
+        got = resample._resample_rows(*args)
+        counters = dict(prof.counters)
+    finally:
+        prof.enabled = False
+        prof.reset()
+    assert resample.LAUNCHES == before + 1
+    assert counters.get("resample.k2") == 1 and "resample.plain" not in counters
+    want = resample._resample_rows_plain(*args)
+    err = float((got - want).abs().max())
+    print("K2 vs plain at %d taps, %s: max abs %g" % (n_taps, coeff_dtype,
+                                                      err))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("old,new", [(48000, 44100), (44100, 48000)])
+def test_k2_stream_on_card_is_write_size_independent(old, new):
+    """The streaming resampler on the card: 3 s in one write and in seeded
+    writes of 1 frame up give the same output, bit for bit."""
+    from audiowmark_tpu_torch.ops.resample import StreamingResampler
+    n = 3 * old
+    rng = np.random.RandomState(old)
+    x = ((rng.rand(2 * n) * 2 - 1) * 0.9).astype(np.float32)
+    outs = []
+    for bounds in ([0, n], sorted({0, 1, 2, n, *rng.randint(3, n, 20)})):
+        res = StreamingResampler(2, old, new, "cuda")
+        got = []
+        for lo, hi in zip(bounds, bounds[1:]):
+            res.write_frames(x[2 * lo:2 * hi])
+            got.append(res.read_frames(res.can_read_frames()).cpu())
+        res.write_trailing_frames()
+        got.append(res.read_frames(res.can_read_frames()).cpu())
+        outs.append(torch.cat(got))
+    assert torch.equal(outs[0], outs[1])
 
 
 def test_streaming_add_and_staged_search_on_card_match_cpu(tmp_path):

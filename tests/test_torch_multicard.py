@@ -17,14 +17,16 @@ and the tests skip with the reason where fewer are present):
 
 * K1 on every card against its plain version on that card, bit for bit, at
   143 steps and B = 1, 8, 24 and 256, each launch counted on its card;
+* K2 (the resampler's kernel) on every card against its plain rows on that
+  card, at both coefficient precisions, each launch counted on its card;
 * the chunk-group search of `get` (four chunks of a 110 s file at the
   reduced geometry, one row per card on four cards): stdout equal to the
   one-card get, and the group search equal to the per-chunk search;
 * `get` under `torch.cuda.device(1)` of a 32 kHz file in two chunks with
   the prefetch thread (the loader's resampler on the caller's card): the
-  same report as on card 0, K1 launched on card 1 only;
+  same report as on card 0, K1 and K2 launched on card 1 only;
 * the speed scan's centres split over the cards (uneven shares): the grid
-  equal to the one-card scan;
+  equal to the one-card scan, K2 launched on the cards that hold centres;
 * `watermark_batch` on the (n, 1) and (2, n/2) meshes: 0 samples apart
   from the one-card call; `detect_batch` over the cards: every array equal
   to the one-card call, K1 launched once on each card.
@@ -47,6 +49,7 @@ from audiowmark_tpu_torch.crypto.keys import Key
 from audiowmark_tpu_torch.fixtures import acs_check_metrics, acs_equal
 from audiowmark_tpu_torch.io.wavdata import WavData
 from audiowmark_tpu_torch.models import syncfinder
+from audiowmark_tpu_torch.ops import resample
 from audiowmark_tpu_torch.ops import speed as speed_ops
 from audiowmark_tpu_torch.ops import viterbi
 from audiowmark_tpu_torch.parallel import batch as fleet
@@ -183,6 +186,27 @@ def test_k1_on_every_card_equals_plain(cards, batch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("coeff_dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ratio", [44100 / 48000, 0.98 / 2])
+def test_k2_on_every_card_equals_plain(cards, ratio, coeff_dtype):
+    """K2 against the plain rows on each card, an hour into a stream, on
+    that card's current stream: bit for bit."""
+    n_taps = resample._filter_params(ratio)[3]
+    j0 = 3600 * 44100 + 7
+    resample.LAUNCHES_BY_CARD.clear()
+    for i, card in enumerate(cards):
+        rng = np.random.RandomState(i)
+        xpad = torch.from_numpy(((rng.rand(70000 + n_taps, 2) * 2 - 1) * 0.9)
+                                .astype(np.float32)).to(card)
+        args = (xpad, j0, int(70000 * ratio), ratio,
+                -int(np.floor(j0 / ratio)), coeff_dtype)
+        got = resample._resample_rows(*args)
+        assert got.device == card
+        assert torch.equal(got, resample._resample_rows_plain(*args)), card
+    assert resample.LAUNCHES_BY_CARD == {i: 1 for i in range(len(cards))}
+
+
+@pytest.mark.cuda
 def test_group_search_over_the_cards_equals_one_card(cards, tmp_path,
                                                      monkeypatch):
     """Four chunks of 75 s of a 110 s file: one group, a row per card on
@@ -229,10 +253,12 @@ def test_get_follows_the_callers_current_card(cards, tmp_path, monkeypatch):
     with one_card(monkeypatch):
         want = cmp_text(marked)
         viterbi.LAUNCHES_BY_CARD.clear()
+        resample.LAUNCHES_BY_CARD.clear()
         with torch.cuda.device(1):
             got = cmp_text(marked)
     assert want[0] == 0 and got == want
     assert set(viterbi.LAUNCHES_BY_CARD) == {1}
+    assert set(resample.LAUNCHES_BY_CARD) == {1}
 
 
 @pytest.mark.cuda
@@ -253,10 +279,12 @@ def test_speed_scan_split_equals_one_card(cards, monkeypatch, n_centers):
     real = speed_ops._center_mag_matrix
     monkeypatch.setattr(speed_ops, "_center_mag_matrix",
                         lambda x, *a: on.append(x.device.index) or real(x, *a))
+    resample.LAUNCHES_BY_CARD.clear()
     got = speed_ops.speed_scan(clip, 2, centers, 6.0, rels, bits)
     assert got == want and max(q for row in got for q, _ in row) > 0
     per = -(-n_centers // len(cards))
     assert on == [i // per for i in range(n_centers)]
+    assert set(resample.LAUNCHES_BY_CARD) == set(on)
 
 
 def fleet_audio(n_streams):
