@@ -10,7 +10,8 @@ searched in groups of one per card in one batched launch
 (AUDIOWMARK_MULTICHIP=0 turns that off) and then decoded one by one.  With
 --detect-speed, --detect-speed-patient or --try-speed each chunk is also
 resampled to the detected or given speed and decoded there, ahead of its
-speed-1 decode.
+speed-1 decode: spans `get.speed` (the detection), `get.speed_decode` (the
+decode at a speed) and, inside it, `get.speed_resample`.
 """
 
 from __future__ import annotations
@@ -75,23 +76,26 @@ def _decode(result_set: ResultSet, key_list: List[Key], wav_data: WavData,
     if Params.detect_speed or Params.detect_speed_patient \
             or Params.try_speed > 0:
         if Params.detect_speed or Params.detect_speed_patient:
-            speed_results = detect_speed(key_list, wav_data,
-                                         print_results=bool(orig_bits),
-                                         device=device)
+            with prof.phase("get.speed"):
+                speed_results = detect_speed(key_list, wav_data,
+                                             print_results=bool(orig_bits),
+                                             device=device)
         else:
             speed_results = [(key, Params.try_speed) for key in key_list]
 
         for key, speed in speed_results:
-            wav_speed = resample_ratio(wav_data, speed,
-                                       int(Params.mark_sample_rate * speed),
-                                       device)
-            jobs = _DecodeJobs(device)
-            BlockDecoder(speed, device).run([key], wav_speed, result_set,
-                                            jobs)
-            if first_chunk:
-                ClipDecoder(speed, device).run([key], wav_speed, result_set,
-                                               jobs)
-            jobs.flush()
+            with prof.phase("get.speed_decode"):
+                with prof.phase("get.speed_resample"):
+                    wav_speed = resample_ratio(
+                        wav_data, speed, int(Params.mark_sample_rate * speed),
+                        device)
+                jobs = _DecodeJobs(device)
+                BlockDecoder(speed, device).run([key], wav_speed, result_set,
+                                                jobs)
+                if first_chunk:
+                    ClipDecoder(speed, device).run([key], wav_speed,
+                                                   result_set, jobs)
+                jobs.flush()
 
     # the clip pair search is ENQUEUED before the block search's blocking
     # read: launches are asynchronous, so the card scores the clip windows

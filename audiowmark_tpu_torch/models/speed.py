@@ -11,7 +11,13 @@ Port of audiowmark_tpu/models/speed.py.  Reference behaviour
 The clip choice (a PRNG seeded by a hash of the samples, an energy sum in
 float64) and the score lists stay on the host; each scan is one
 ops/speed.speed_scan on the device, which keeps every centre's mag matrix
-there and returns the (centres x rels) quality grid.
+there and returns the (centres x rels) quality grid.  The scans' constants
+are named below, so that a deployment's configuration can be held to them.
+
+Spans (utils/prof.py): `speed.clip` (the clip choice), `speed.select`
+(local maxima, top n and the smoothed argmax); ops/speed.py adds
+`speed.prepare` and `speed.compare` and the counters `speed.scans` and
+`speed.centres`.
 """
 
 from __future__ import annotations
@@ -28,6 +34,21 @@ from ..io.wavdata import WavData
 from ..ops import speed as speed_ops
 from ..params import Params
 from ..tables import get_key_tables
+from ..utils import prof
+
+# each scan's (seconds, step, n_steps, n_center_steps), normal and patient
+# (src/wmspeed.cc:635-673)
+SCAN1 = (25, 1.0007, 5, 28)
+SCAN1_PATIENT = (50, 1.00035, 11, 28)
+SCAN2 = (50, 1.00035, 1, 0)
+SCAN2_PATIENT = (50, 1.000175, 1, 0)
+SCAN3 = (50, 1.00005, 40, 0)
+N_BEST = 5                      # scan 1's local maxima that scan 2 refines
+N_BEST_PATIENT = 15
+CLIP_CANDIDATES = 5             # keyed clip locations weighed by energy
+SMOOTH_DISTANCE = 20.0          # scan 3's smoothing window, in steps
+ACCEPT_QUALITY = 0.4            # a speed is reported above this quality
+ACCEPT_BAND = (0.9999, 1.0001)  # and outside this band around 1
 
 
 @dataclass
@@ -160,36 +181,36 @@ def detect_speed(key_list: List[Key], in_data: WavData,
     if in_seconds < 0.25:
         return results
 
-    scan1 = (ScanParams(50, 1.00035, 11, 28) if Params.detect_speed_patient
-             else ScanParams(25, 1.0007, 5, 28))
-    scan2 = (ScanParams(50, 1.000175, 1) if Params.detect_speed_patient
-             else ScanParams(50, 1.00035, 1))
-    scan3 = ScanParams(50, 1.00005, 40)
-    scan3_smooth_distance = 20.0
-    speed_sync_threshold = 0.4
-    n_best = 15 if Params.detect_speed_patient else 5
-    clip_candidates = 5
+    patient = Params.detect_speed_patient
+    scan1 = ScanParams(*(SCAN1_PATIENT if patient else SCAN1))
+    scan2 = ScanParams(*(SCAN2_PATIENT if patient else SCAN2))
+    scan3 = ScanParams(*SCAN3)
+    n_best = N_BEST_PATIENT if patient else N_BEST
 
     searches = []
-    for key in key_list:
-        clip_location = _get_best_clip_location(key, in_data, scan1.seconds,
-                                                clip_candidates)
-        searches.append(_KeySearch(key, in_data, clip_location, device))
+    with prof.phase("speed.clip"):
+        for key in key_list:
+            clip_location = _get_best_clip_location(
+                key, in_data, scan1.seconds, CLIP_CANDIDATES)
+            searches.append(_KeySearch(key, in_data, clip_location, device))
 
     for ks in searches:
         ks.run_scan(scan1, [1.0])
 
     for ks in searches:
-        best = _select_n_best_scores(ks.scores, n_best)
+        with prof.phase("speed.select"):
+            best = _select_n_best_scores(ks.scores, n_best)
         ks.run_scan(scan2, [s.speed for s in best])
 
     for ks in searches:
-        best = _select_n_best_scores(ks.scores, 1)
+        with prof.phase("speed.select"):
+            best = _select_n_best_scores(ks.scores, 1)
         ks.run_scan(scan3, [best[0].speed] if best else [1.0])
 
     for ks in searches:
-        best_speed = _score_smooth_find_best(ks.scores, 1 - scan3.step,
-                                             scan3_smooth_distance)
+        with prof.phase("speed.select"):
+            best_speed = _score_smooth_find_best(ks.scores, 1 - scan3.step,
+                                                 SMOOTH_DISTANCE)
         best_quality = max((s.quality for s in ks.scores), default=0.0)
 
         if print_results:
@@ -200,7 +221,7 @@ def detect_speed(key_list: List[Key], in_data: WavData,
             print("detect_speed %f %f %.4f" % (best_speed, best_quality,
                                                delta))
 
-        if best_quality > speed_sync_threshold:
-            if best_speed < 0.9999 or best_speed > 1.0001:
+        if best_quality > ACCEPT_QUALITY:
+            if best_speed < ACCEPT_BAND[0] or best_speed > ACCEPT_BAND[1]:
                 results.append((ks.key, best_speed))
     return results

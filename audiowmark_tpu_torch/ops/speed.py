@@ -22,6 +22,11 @@ cards (`scan_device_count`), keeps every centre's mag matrix on its device
 and brings back only the (centres x rels) quality grid; it drops the
 (block, entry) pairs that no state can reach in this scan's clip (the
 reference's have_mag == 0 rows), which changes no value.
+
+Spans (utils/prof.py): `speed.prepare` (a share's clip upload and each
+centre's mag matrix) and `speed.compare` (each centre's offset scan, and
+the read of the grid); counters `speed.scans` (calls of `speed_scan`) and
+`speed.centres` (mag matrices built).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 from ..device import DeviceLike, card_count, resolve, spread
 from ..params import Params
 from ..tables import KeyTables
+from ..utils import prof
 from .resample import resample_frames
 
 SUB_FRAME = Params.frame_size // 2          # 512
@@ -148,6 +154,7 @@ def prepare_mag_matrix(clip_samples: np.ndarray, n_channels: int,
     input) and reduce it to the (rows, 2J) sync mag matrix
     (reference: src/wmspeed.cc:204-268)."""
     dev = resolve(device)
+    prof.count("speed.centres")
     D = _center_mag_matrix(
         _upload_clip(clip_samples, n_channels, dev), center, scan_seconds,
         torch.from_numpy(_sub_window()).to(dev),
@@ -311,6 +318,7 @@ def speed_scan(clip_samples: np.ndarray, n_channels: int,
     centre, [(quality, centre * rel)] in rel order: the values that
     prepare_mag_matrix + compare_speed_batch give centre by centre."""
     resolve(device)
+    prof.count("speed.scans")
     clip_frames = clip_samples.size // n_channels
     max_rows = max(mag_rows(int(round(
         _scan_in_frames(clip_frames, c, scan_seconds) * (c / 2))))
@@ -323,15 +331,22 @@ def speed_scan(clip_samples: np.ndarray, n_channels: int,
             mine = centers[i * per:(i + 1) * per]
             if not len(mine):
                 continue
-            x = _upload_clip(clip_samples, n_channels, dev)
-            win = torch.from_numpy(_sub_window()).to(dev)
-            v = torch.from_numpy(sync_bits.v).to(dev)
-            tables = _compare_tables(rels, sync_bits, max_rows, dev)
-            shares.append(torch.stack([
-                compare_speed_core(
-                    _center_mag_matrix(x, c, scan_seconds, win, v), tables)
-                for c in mine]))
-        grid = np.concatenate([s.cpu().numpy() for s in shares])
+            with prof.phase("speed.prepare"):
+                x = _upload_clip(clip_samples, n_channels, dev)
+                win = torch.from_numpy(_sub_window()).to(dev)
+                v = torch.from_numpy(sync_bits.v).to(dev)
+            with prof.phase("speed.compare"):
+                tables = _compare_tables(rels, sync_bits, max_rows, dev)
+            row = []
+            for c in mine:
+                with prof.phase("speed.prepare"):
+                    D = _center_mag_matrix(x, c, scan_seconds, win, v)
+                prof.count("speed.centres")
+                with prof.phase("speed.compare"):
+                    row.append(compare_speed_core(D, tables))
+            shares.append(torch.stack(row))
+        with prof.phase("speed.compare"):
+            grid = np.concatenate([s.cpu().numpy() for s in shares])
     else:
         grid = np.zeros((len(centers), len(rels)), dtype=np.float32)
     return [[(float(grid[k, r]), rel * center) for r, rel in enumerate(rels)]

@@ -223,3 +223,108 @@ def test_clip_windows_are_a_span_of_their_own(monkeypatch):
         prof.enabled = False
     assert prof.counts["get.clip_windows"] == 1
     assert "get.search_clip" not in prof.counts
+
+
+# ---- speed detection (get --detect-speed) -----------------------------------
+
+# a 12-bit payload under the 128-bit code, 10 sync frames per bit (384
+# frames per block), and scans cut to a few seconds
+_SPEED_GEOMETRY = {"payload_size": 12, "sync_frames_per_bit": 10}
+_SHORT_SCANS = {"SCAN1": (4, 1.003, 2, 1), "SCAN2": (4, 1.0015, 1, 0),
+                "SCAN3": (4, 1.0001, 5, 0)}
+
+
+@pytest.fixture
+def short_speed(monkeypatch):
+    from audiowmark_tpu_torch.models import speed
+    for k, v in _SPEED_GEOMETRY.items():
+        setattr(Params, k, v)
+    for k, v in _SHORT_SCANS.items():
+        monkeypatch.setattr(speed, k, v)
+
+
+def _counted_scans(monkeypatch):
+    """speed_scan wrapped to record the centres of each call."""
+    from audiowmark_tpu_torch.ops import speed as ops
+    seen = []
+    scan0 = ops.speed_scan
+
+    def scan(clip, n_channels, centers, *args, **kw):
+        seen.append(len(centers))
+        return scan0(clip, n_channels, centers, *args, **kw)
+
+    monkeypatch.setattr(ops, "speed_scan", scan)
+    return seen
+
+
+def test_speed_detection_spans_and_counters(tmp_path, short_speed,
+                                            monkeypatch):
+    """detect_speed: the clip choice once, each scan's mag matrices and
+    offset scans, the selections between the scans and the smoothing
+    after them; `speed.scans` counts the scans and `speed.centres` the mag
+    matrices built, one per centre."""
+    from audiowmark_tpu_torch.models.speed import detect_speed
+    seen = _counted_scans(monkeypatch)
+    wav = WavData(_noise(10, 44100), 2, 44100, 16)
+    by, counters = _traced(lambda: detect_speed([Key()], wav, False, "cpu"),
+                           tmp_path / "t1.json")
+    assert len(by["speed.clip"]) == 1
+    assert len(by["speed.select"]) == 3
+    assert by["speed.prepare"] and by["speed.compare"]
+    for name in ("speed.clip", "speed.prepare", "speed.compare",
+                 "speed.select"):
+        _siblings(by, [name])
+    _siblings(by, ["speed.clip", "speed.prepare", "speed.compare",
+                   "speed.select"])
+    assert len(seen) == counters["speed.scans"] == 3
+    assert counters["speed.centres"] == sum(seen) == \
+        len(by["speed.prepare"]) - 3
+
+
+def test_speed_spans_are_absent_and_free_when_off(short_speed):
+    from audiowmark_tpu_torch.models.speed import detect_speed
+    assert not prof.enabled
+    assert prof.phase("get.speed") is prof.phase("speed.clip")
+    detect_speed([Key()], WavData(_noise(6, 44100), 2, 44100, 16), False,
+                 "cpu")
+    assert not prof.totals and not prof.counts and not prof.counters
+
+
+def test_get_speed_spans_nest_the_decode_at_the_speed(tmp_path, short_speed,
+                                                      monkeypatch):
+    """get_watermark with --detect-speed (the detection's result replaced
+    by a fixed speed, so that the decode at a speed runs): `get.speed`
+    around the detection, `get.speed_decode` around the decode at the
+    speed with `get.speed_resample` and the decode's own search and
+    extraction spans inside it, all on the get's thread."""
+    from audiowmark_tpu_torch.models import getter
+    path = str(tmp_path / "in.wav")
+    # over 3.1 blocks: no clip decoder, whose padded windows take the CPU
+    # most of a minute
+    WavData(_noise(30, 44100), 2, 44100, 16).save(path)
+    Params.get_n_best = 1
+    detect0 = getter.detect_speed
+    monkeypatch.setattr(getter, "detect_speed", lambda keys, *a, **kw: [
+        (k, 1.03) for k, _ in [(k, detect0(keys, *a, **kw)) for k in keys]])
+    monkeypatch.setenv("AUDIOWMARK_PREFETCH", "0")
+    Params.detect_speed = True
+
+    def get():
+        getter.get_watermark([Key()], path, "", device="cpu")
+
+    by, counters = _traced(get, tmp_path / "t1.json")
+    assert len(by["get.speed"]) == len(by["get.speed_decode"]) == 1
+    assert len(by["get.speed_resample"]) == 1
+    assert counters["speed.scans"] == 3
+    outer = by["get.speed_decode"][0]
+
+    def inside(e, o):
+        return e["tid"] == o["tid"] and e["ts"] >= o["ts"] \
+            and e["ts"] + e["dur"] <= o["ts"] + o["dur"]
+
+    assert inside(by["get.speed_resample"][0], outer)
+    assert all(inside(e, by["get.speed"][0]) for e in by["speed.compare"])
+    for name in ("get.search_block", "get.extract"):
+        assert len(by[name]) == 2, name       # at the speed, then at 1
+        assert inside(by[name][0], outer) and not inside(by[name][1], outer)
+    _siblings(by, ["get.speed", "get.speed_decode"])
