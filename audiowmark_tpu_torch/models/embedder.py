@@ -8,10 +8,13 @@ reference's Data Blocks count, and the informational output.
   44.1 kHz file of known length up to _FAST_PATH_MAX_FRAMES frames (f32
   in; int16 out for a 16-bit writer).
 * Streaming path, for everything else (another sample rate, a pipe or
-  unknown length, longer files, --snr, a zero lead-in): tiles of frames
-  through ops/frames.embed_delta_frames on the device with the overlap-add
-  carry, the resampler pair of ops/resample.py around it for other rates,
-  then the mix, the host StreamingLimiter and the writer on the host.
+  unknown length, longer files, --snr, a zero lead-in): each tile is
+  uploaded once and finished on the device: ops/frames.embed_delta_frames
+  with the overlap-add carry, the resampler pair of ops/resample.py around
+  it for other rates, the mix with the tile's samples kept on the device,
+  ops/limiter.DeviceStreamingLimiter and, for a 16-bit signed PCM writer,
+  its trunc-clip (ops/frames.quantize_i16): one read-back per tile, int16
+  where the writer takes it as it is, float32 for every other output.
 """
 
 from __future__ import annotations
@@ -29,8 +32,9 @@ from ..utils.hexbits import bit_vec_to_str
 from ..utils.log import error, info, warning
 
 from ..device import DeviceLike, resolve
-from ..ops.frames import FRAME, add_file_core, embed_delta_frames
-from ..ops.limiter import StreamingLimiter
+from ..ops.frames import FRAME, add_file_core, embed_delta_frames, \
+    quantize_i16
+from ..ops.limiter import DeviceStreamingLimiter
 from ..ops.resample import StreamingResampler, _filter_params
 from ..tables import get_key_tables, tables_to_device
 from ..utils import prof
@@ -76,7 +80,8 @@ class StreamingEmbedder:
         self.prev1 = None
         self.prev2 = None
         self.first_frame = True
-        self._in_remainder = np.zeros(0, dtype=np.float32)
+        self._in_remainder = torch.zeros(0, dtype=torch.float32,
+                                         device=self.device)
 
         self.need_resampler = input_rate != Params.mark_sample_rate
         if self.need_resampler:
@@ -116,21 +121,20 @@ class StreamingEmbedder:
             n_frames, device=self.device)) % (2 * self.frames_per_block)
         return self.mods_ab[phases]
 
-    def run(self, samples: np.ndarray) -> np.ndarray:
-        """Feed input-rate samples; returns the delta samples available so
-        far (input rate, on the host)."""
+    def run(self, samples) -> torch.Tensor:
+        """Feed input-rate samples (interleaved, a tensor on the device or a
+        host array); returns the delta samples available so far (input
+        rate, on the device)."""
         if not self.need_resampler:
-            self._in_remainder = np.concatenate([self._in_remainder, samples])
+            x = torch.as_tensor(samples, dtype=torch.float32,
+                                device=self.device)
+            if self._in_remainder.shape[0]:
+                x = torch.cat([self._in_remainder, x])
             vpf = FRAME * self.n_channels
-            n_whole = self._in_remainder.size // vpf * vpf
-            ready = self._in_remainder[:n_whole]
-            self._in_remainder = self._in_remainder[n_whole:]
-            with prof.phase("add.upload"):
-                x = torch.from_numpy(ready).to(self.device)
+            n_whole = x.shape[0] // vpf * vpf
+            self._in_remainder = x[n_whole:]
             with prof.phase("add.embed"):
-                delta = self._gen_frames(x)
-            with prof.phase("add.readback"):
-                return delta.cpu().numpy()
+                return self._gen_frames(x[:n_whole])
 
         with prof.phase("add.resample"):
             self.in_resampler.write_frames(samples)
@@ -144,9 +148,7 @@ class StreamingEmbedder:
                 self.out_resampler.write_frames(wm)
         to_read = self.out_resampler.can_read_frames()
         with prof.phase("add.resample"):
-            delta = self.out_resampler.read_frames(to_read)
-        with prof.phase("add.readback"):
-            return delta.cpu().numpy()
+            return self.out_resampler.read_frames(to_read)
 
     def skip(self, zero_frames: int) -> int:
         """Skip a whole-frame zero lead-in, keeping the PRNG frame phase
@@ -236,6 +238,14 @@ def _ref_generator_frame_cap(n_in_frames: int, in_rate: int,
     return gen // FRAME
 
 
+def _writes_int16(out_stream: AudioOutputStream) -> bool:
+    """Whether `out_stream` writes 16-bit signed PCM through a WAV writer,
+    which takes int16 samples as they are (io/wavfile.WavFileWriter)."""
+    writer = getattr(out_stream, "writer", None)
+    return bool(writer is not None and writer.bit_depth == 16
+                and writer.encoding == Encoding.SIGNED)
+
+
 def _add_file_fast(embedder: StreamingEmbedder, in_stream: AudioInputStream,
                    out_stream: AudioOutputStream, n_channels: int) -> int:
     """Whole-file add in one device pass; returns the frames written."""
@@ -251,9 +261,7 @@ def _add_file_fast(embedder: StreamingEmbedder, in_stream: AudioInputStream,
     x = np.zeros(G * FRAME * n_channels, dtype=np.float32)
     x[:samples.size] = samples
 
-    writer = getattr(out_stream, "writer", None)
-    out_i16 = bool(writer is not None and writer.bit_depth == 16
-                   and writer.encoding == Encoding.SIGNED)
+    out_i16 = _writes_int16(out_stream)
 
     block_size = Params.mark_sample_rate \
         * int(Params.limiter_block_size_ms) // 1000
@@ -348,14 +356,15 @@ def add_stream_watermark(key: Key, in_stream: AudioInputStream,
     with prof.phase("add.setup"):
         embedder = StreamingEmbedder(key, n_channels, in_stream.sample_rate(),
                                      bitvec, dev)
-        limiter = StreamingLimiter(n_channels, in_stream.sample_rate(),
-                                   Params.limiter_block_size_ms,
-                                   Params.limiter_ceiling)
+        limiter = DeviceStreamingLimiter(n_channels, in_stream.sample_rate(),
+                                         Params.limiter_block_size_ms,
+                                         Params.limiter_ceiling, dev)
 
     snr_delta_power = 0.0
     snr_signal_power = 0.0
 
-    orig_fifo = np.zeros(0, dtype=np.float32)
+    # the input samples not yet mixed, on the device
+    orig_fifo = torch.zeros(0, dtype=torch.float32, device=dev)
     total_input_frames = 0
     total_output_frames = 0
     zero_frames_in = zero_frames
@@ -365,8 +374,7 @@ def add_stream_watermark(key: Key, in_stream: AudioInputStream,
         skip_frames = zero_frames_in - zero_frames_in % FRAME
         total_input_frames += skip_frames
         out = embedder.skip(skip_frames)
-        orig_fifo = np.zeros((skip_frames - out) * n_channels,
-                             dtype=np.float32)
+        orig_fifo = orig_fifo.new_zeros((skip_frames - out) * n_channels)
         out = limiter.skip(out)
         assert out < zero_frames_out
         zero_frames_out -= out
@@ -386,6 +394,7 @@ def add_stream_watermark(key: Key, in_stream: AudioInputStream,
         out_stream.close()
         return 0
 
+    out_i16 = _writes_int16(out_stream)
     if in_stream.n_frames() is None:
         tile_frames, max_tile_frames = 16, _TILE_FRAMES_UNKNOWN
     else:
@@ -394,19 +403,13 @@ def add_stream_watermark(key: Key, in_stream: AudioInputStream,
     while True:
         tile = tile_frames * FRAME
         tile_frames = min(tile_frames * 2, max_tile_frames)
-        if zero_frames_in > 0:
-            with prof.phase("add.read"):
-                samples = in_stream.read_frames(tile - zero_frames_in)
-            samples = np.concatenate([
-                np.zeros(zero_frames_in * n_channels, dtype=np.float32),
-                samples])
-            zero_frames_in = 0
-        else:
-            with prof.phase("add.read"):
-                samples = in_stream.read_frames(tile)
-        got_frames = samples.size // n_channels
+        lead_frames, zero_frames_in = zero_frames_in, 0
+        with prof.phase("add.read"):
+            samples = in_stream.read_frames(tile - lead_frames)
+        got_frames = lead_frames + samples.size // n_channels
         total_input_frames += got_frames
 
+        pad_frames = 0
         if got_frames < tile:
             eof = True
             if total_input_frames == total_output_frames:
@@ -424,19 +427,22 @@ def add_stream_watermark(key: Key, in_stream: AudioInputStream,
                     in_stream.sample_rate()
                     * int(Params.limiter_block_size_ms) // 1000)
             pad_frames = tile - got_frames
-            samples = np.concatenate([
-                samples, np.zeros(pad_frames * n_channels, dtype=np.float32)])
 
-        orig_fifo = np.concatenate([orig_fifo, samples])
-        delta = embedder.run(samples)
-        n = delta.size
+        with prof.phase("add.upload"):
+            x = torch.from_numpy(np.asarray(samples, np.float32)).to(dev)
+        if lead_frames or pad_frames:
+            x = torch.cat([x.new_zeros(lead_frames * n_channels), x,
+                           x.new_zeros(pad_frames * n_channels)])
+        orig_fifo = torch.cat([orig_fifo, x])
+        delta = embedder.run(x)
+        n = delta.shape[0]
         orig_samples, orig_fifo = orig_fifo[:n], orig_fifo[n:]
 
         if Params.snr:
             snr_delta_power += float(np.sum(np.square(
-                delta.astype(np.float64))))
+                delta.cpu().numpy().astype(np.float64))))
             snr_signal_power += float(np.sum(np.square(
-                orig_samples.astype(np.float64))))
+                orig_samples.cpu().numpy().astype(np.float64))))
 
         mixed = delta + orig_samples
         if not Params.test_no_limiter:
@@ -444,18 +450,25 @@ def add_stream_watermark(key: Key, in_stream: AudioInputStream,
                 mixed = limiter.process(mixed)
 
         max_write = total_input_frames - total_output_frames
-        if mixed.size > max_write * n_channels:
-            mixed = mixed[: max_write * n_channels]
+        mixed = mixed[: max_write * n_channels]
 
-        cut_frames = min(mixed.size // n_channels, zero_frames_out)
+        cut_frames = min(mixed.shape[0] // n_channels, zero_frames_out)
         if cut_frames > 0:
             mixed = mixed[cut_frames * n_channels:]
             total_output_frames += cut_frames
             zero_frames_out -= cut_frames
 
+        # one read-back a tile: int16 for a writer that takes it as it is
+        with prof.phase("add.readback"):
+            if out_i16:
+                out = quantize_i16(mixed).cpu().numpy()
+                prof.count("add.finish_i16")
+            else:
+                out = mixed.cpu().numpy()
+                prof.count("add.finish_f32")
         with prof.phase("add.write"):
-            out_stream.write_frames(mixed)
-        total_output_frames += mixed.size // n_channels
+            out_stream.write_frames(out)
+        total_output_frames += out.size // n_channels
         if eof and total_input_frames == total_output_frames:
             break
 

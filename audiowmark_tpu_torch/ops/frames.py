@@ -196,15 +196,19 @@ def add_file_core(x: torch.Tensor, mods: torch.Tensor, water_delta: float,
                              n_channels)
 
     mixed = mixed[:n_out]
-    if not out_i16:
-        return mixed
-    # exact trunc-clip of io/converters.float_to_int_clip32, then >> 16;
+    return quantize_i16(mixed) if out_i16 else mixed
+
+
+def quantize_i16(mixed: torch.Tensor) -> torch.Tensor:
+    """float32 samples -> the int16 a 16-bit signed PCM writer makes of
+    them (io/wavfile.encode_samples): the exact trunc-clip of
+    io/converters.float_to_int_clip32, then >> 16, on their device."""
     # 2147483647.0 rounds to 2^31 in float32, as in the writer
-    snorm = mixed * _f32(2147483648.0, x)
+    snorm = mixed * _f32(2147483648.0, mixed)
     i32 = torch.where(
-        snorm >= _f32(2147483647.0, x),
+        snorm >= _f32(2147483647.0, mixed),
         torch.full_like(snorm, 2147483647, dtype=torch.int32),
-        torch.where(snorm <= _f32(-2147483648.0, x),
+        torch.where(snorm <= _f32(-2147483648.0, mixed),
                     torch.full_like(snorm, -2147483648, dtype=torch.int32),
                     torch.trunc(snorm).to(torch.int32)))
     return (i32 >> 16).to(torch.int16)

@@ -188,7 +188,7 @@ def unknown_vs_known(wav: str, rate: int, limiter: bool) -> dict:
     tiles, run = [], embedder.StreamingEmbedder.run
 
     def recording(self, samples):
-        tiles.append(samples.size // self.n_channels // Params.frame_size)
+        tiles.append(len(samples) // self.n_channels // Params.frame_size)
         return run(self, samples)
 
     embedder.StreamingEmbedder.run = recording

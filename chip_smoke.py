@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (audiowmark_tpu_torch) on one card.
 
-    python3 chip_smoke.py              # phases 1-25 and 27, one card
-    python3 chip_smoke.py --new-only   # phases 1, 2 and 27, one card
+    python3 chip_smoke.py              # phases 1-25, 27 and 28, one card
+    python3 chip_smoke.py --new-only   # phases 1, 2, 27 and 28, one card
     python3 chip_smoke.py --cards 4    # phases 1, 2 and 26, four cards
 
 Drives the port's main path as a user calls it — add_watermark, then
@@ -209,7 +209,20 @@ write and in seeded writes of 1 frame up, bit for bit, and against the
 CPU's.  The kernels line gives K2 after K1, with its launches on the other
 phases' paths (`launches`) and in phase 27's checks (`check_launches`).
 
-`python3 chip_smoke.py --new-only` runs phases 1, 2 and 27 alone; it
+Phase 28 (finish): the streaming add finishes each tile on the card (the
+mix, ops/limiter.DeviceStreamingLimiter and, for a 16-bit signed PCM
+writer, the trunc-clip to int16): DeviceStreamingLimiter on the card
+against the numpy StreamingLimiter, bit for bit, on stereo noise at peak
+1.2 at 44.1 and 48 kHz (fixtures.limiter_signal: a first piece of several
+blocks, 12 uneven ones, a zero lead-in's skip, flush); the 48 kHz
+streaming add of 174 s of known length into 16-bit WAV (two 4096-frame
+tiles and the drain) and of 30 s of unknown length into float WAV, each
+byte for byte the host finish of its own tiles (fixtures.host_finish:
+numpy mix, StreamingLimiter, the writer's encode of float32), counter
+`add.finish_i16` (16-bit) or `add.finish_f32` (float) one per tile
+written and the other 0.
+
+`python3 chip_smoke.py --new-only` runs phases 1, 2, 27 and 28 alone; it
 prints no kernels line.
 
 `python3 chip_smoke.py --cards 4` runs phases 1, 2 and 26 on exactly four
@@ -2459,6 +2472,54 @@ CARDS_CHUNK_MINUTES = 6.0       # 8 chunks of the 32-min file: 2 groups of 4
 CARDS_SPEED = "0.9764"
 
 
+def phase_finish(smi):
+    """28. the streaming limiter on the card vs the numpy one; the 48 kHz
+    streaming add on the card vs the host finish of its own tiles."""
+    from audiowmark_tpu_torch.fixtures import (MemoryWav, add_and_host_finish,
+                                               limiter_signal, limiters_apart)
+    from audiowmark_tpu_torch.params import Encoding
+    fields = {}
+    for rate in (44100, 48000):
+        sizes, apart, skipped = limiters_apart(rate, 2, 1.2, 2 * rate + 777,
+                                               "cuda")
+        check(skipped[0] == skipped[1] and sizes[0] == sizes[1]
+              and apart == 0, "DeviceStreamingLimiter at %d Hz: %d samples "
+              "differ from StreamingLimiter (sizes %s, skips %s)"
+              % (rate, apart, sizes, skipped))
+        fields["limiter_%d" % rate] = dict(samples=sizes[0], apart=0)
+
+    for output, secs, known in (("wav16", 174, True), ("float", 30, False)):
+        x = limiter_signal(48, secs, 48000, 2, 1.2)
+        bits, enc = (16, Encoding.SIGNED) if output == "wav16" \
+            else (32, Encoding.FLOAT)
+        r = add_and_host_finish(
+            x, 2, 48000, lambda name: MemoryWav(
+                2, 48000, bits, enc, x.size // 2 if known else None),
+            known, device="cuda")
+        check(r["rc"] == 0, "48 kHz streaming add (%s) failed" % output)
+        got, want = r["device"].buf.getvalue(), r["host"].buf.getvalue()
+        bytes_apart = int(np.count_nonzero(
+            np.frombuffer(got, np.uint8) != np.frombuffer(want, np.uint8))) \
+            if len(got) == len(want) else -1
+        check(len(got) > 0 and bytes_apart == 0,
+              "48 kHz streaming add (%s): %d of %d bytes differ from the "
+              "host finish" % (output, bytes_apart, len(want)))
+        finish = {k: v for k, v in r["counters"].items()
+                  if k.startswith("add.finish")}
+        name = "add.finish_i16" if output == "wav16" else "add.finish_f32"
+        check(set(r["device"].dtypes) == {np.dtype(
+            np.int16 if output == "wav16" else np.float32)},
+              "48 kHz streaming add (%s): the writer got %s"
+              % (output, sorted(set(map(str, r["device"].dtypes)))))
+        check(finish == {name: r["writes"]},
+              "48 kHz streaming add (%s): counters %s, %d tiles written"
+              % (output, finish, r["writes"]))
+        fields["add_48k_%s" % output] = dict(
+            seconds=secs, known_length=known, tiles=r["tiles"],
+            writes=r["writes"], bytes=len(got), bytes_apart=0, **finish)
+    phase("finish", card=smi, **fields)
+
+
 def smi_lines():
     """`nvidia-smi --query-gpu=name,power.limit` of every card, one line
     each."""
@@ -3023,8 +3084,9 @@ def main() -> int:
         return 0
 
     if new_only:
-        # ---- 27. K2 against its plain version ----
+        # ---- 27. K2 against its plain version; 28. the add's finish ----
         phase_k2(smi)
+        phase_finish(smi)
         phase("total", seconds=time.perf_counter() - t_script, card=smi)
         return 0
 
@@ -3084,6 +3146,9 @@ def main() -> int:
 
         # ---- 27. K2 against its plain version ----
         k2 = phase_k2(smi)
+
+        # ---- 28. the streaming add finishes each tile on the card ----
+        phase_finish(smi)
 
     phase("total", seconds=time.perf_counter() - t_script, card=smi)
 

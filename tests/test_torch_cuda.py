@@ -5,7 +5,9 @@ card; the fleet API (watermark_batch, detect_batch) card vs CPU and K1 at
 its batch of 256 rows; the add's delta of every tile size of the
 unknown-length add's ramp against one call on 4096 frames, bit for bit;
 kernel K2 vs the resampler's plain rows on the card, and the streaming
-resampler on the card written in one piece and in many.
+resampler on the card written in one piece and in many; the streaming
+limiter on the card vs the numpy one, and the 48 kHz streaming add's
+output on the card vs the host finish of its own tiles, byte for byte.
 
 Every test here needs the card and skips without one.  This file imports
 no jax and nothing of the JAX package, so it runs where jax is absent,
@@ -306,6 +308,50 @@ def test_streaming_add_and_staged_search_on_card_match_cpu(tmp_path):
             [s.quality for s in r[0].sync_scores],
             [s.quality for s in results[1][0].sync_scores],
             rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("rate", [44100, 48000])
+def test_device_limiter_on_card_equals_numpy(rate):
+    """DeviceStreamingLimiter on the card, bit for bit the numpy
+    StreamingLimiter (fixtures.limiters_apart: stereo noise at peak 1.2,
+    so the ceiling engages, a first piece of several blocks and 12 uneven
+    ones, after a zero lead-in's skip and through flush)."""
+    from audiowmark_tpu_torch.fixtures import limiters_apart
+    sizes, apart, skipped = limiters_apart(rate, 2, 1.2, 2 * rate + 777,
+                                           "cuda")
+    assert skipped[0] == skipped[1] and sizes[0] == sizes[1]
+    assert apart == 0
+
+
+@pytest.mark.parametrize("output,known", [("wav16", True),
+                                          ("float", False)])
+def test_streaming_48k_add_on_card_equals_host_finish(output, known):
+    """A 48 kHz streaming add on the card, byte for byte the host finish of
+    its own tiles (fixtures.host_finish: numpy mix, StreamingLimiter, the
+    writer's encode): 100 s of known length into 16-bit WAV (two 4096-frame
+    tiles and the drain, each finished to int16 on the card), and 30 s of
+    unknown length into float WAV (the ramp of tiles, read back as
+    float32)."""
+    from audiowmark_tpu_torch.fixtures import (MemoryWav, add_and_host_finish,
+                                               limiter_signal)
+    from audiowmark_tpu_torch.params import Encoding
+    x = limiter_signal(48, 100 if known else 30, 48000, 2, 1.2)
+    bits, enc = (16, Encoding.SIGNED) if output == "wav16" \
+        else (32, Encoding.FLOAT)
+    r = add_and_host_finish(
+        x, 2, 48000, lambda name: MemoryWav(2, 48000, bits, enc,
+                                            x.size // 2 if known else None),
+        known, device="cuda")
+    assert r["rc"] == 0 and r["tiles"] > 1
+    got, want = r["device"].buf.getvalue(), r["host"].buf.getvalue()
+    assert len(got) == len(want) > 0
+    assert got == want
+    assert set(r["device"].dtypes) == {
+        np.dtype(np.int16 if output == "wav16" else np.float32)}
+    finish = {k: v for k, v in r["counters"].items()
+              if k.startswith("add.finish")}
+    assert finish == {"add.finish_i16" if output == "wav16"
+                      else "add.finish_f32": r["writes"]}
 
 
 def test_speed_scan_on_card_matches_cpu():
