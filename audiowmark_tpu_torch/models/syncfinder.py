@@ -204,6 +204,34 @@ def _fused_k_for(T: int, frames_per_block: int, n_starts_s: int,
     return K, K >= n_starts_s
 
 
+def _saturated(aq: np.ndarray, K: int, complete: bool) -> bool:
+    """Whether a search's K slots are saturated: every slot holds an
+    eligible candidate (aq: their |q - mean|) above the approx threshold,
+    so candidates may be missing, unless the slots cover every start."""
+    return not complete and aq.size == K \
+        and bool(np.all(aq > Params.sync_threshold2 * 0.75))
+
+
+def _slot_search(launch: Callable, select: Callable, T: int,
+                 frames_per_block: int, n_starts: int, out=None):
+    """The fused search's slot policy, its one loop: launch(K) enqueues a
+    search at K slots (_fused_k_for) and select(out, K, complete) reads it
+    back and selects, None when the slots are saturated.  Saturated slots
+    are searched again at 4x K, until they are not or cover every start;
+    at _K_CAP the loop returns None and the caller takes its fallback.
+    out: the first launch's outputs where the caller enqueued them before
+    (launch(_fused_k_for(T, frames_per_block, n_starts)[0]))."""
+    K, complete = _fused_k_for(T, frames_per_block, n_starts)
+    if out is None:
+        out = launch(K)
+    while True:
+        r = select(out, K, complete)
+        if r is not None or complete or K >= _K_CAP:
+            return r
+        K, complete = _fused_k_for(T, frames_per_block, n_starts, K * 4)
+        out = launch(K)
+
+
 def _finalize_scores(key: Key, refined: List[_SearchScore]) -> KeyResult:
     """Refined candidates -> threshold/n-best -> index-ordered Scores
     (the tail of src/syncfinder.cc:393-458)."""
@@ -234,9 +262,9 @@ def _select_from_fused(key: Key, out_np: dict, K: int, clip: bool,
     # approx threshold/n-best truncation (the top-K slots are quality-
     # descending with index tie order, exactly the host ordering)
     aq = np.abs(q - mean)
-    n_above = int(np.count_nonzero(aq > Params.sync_threshold2 * 0.75))
-    if n_el == K and n_above == K and not complete:
+    if _saturated(aq, K, complete):
         return None
+    n_above = int(np.count_nonzero(aq > Params.sync_threshold2 * 0.75))
     keep = n_above if n_above >= Params.get_n_best \
         else min(Params.get_n_best, n_el)
     if clip:
@@ -290,27 +318,15 @@ def _search_fused_one(key: Key, wav_data, mode: SyncMode,
                                   - x.shape[0])])
     searcher = search_fused.sync_searcher(tables, clip, x.device)
 
-    # saturation escalation: retry with 4x the slots (reduced sync
-    # geometries overflow the default top-K with above-threshold candidates)
-    k_min = 0
-    while True:
-        K, complete = _fused_k_for(T, tables.frames_per_block, n_starts_s,
-                                   k_min)
-        out = searcher(x, n_channels, K, n_starts_true, true_frames,
-                       sil_first, sil_last, 0, n_starts_s)
-        out_np = {k: v.cpu().numpy() for k, v in out.items()}
-        r = _select_from_fused(key, out_np, K, clip, complete)
-        if r is not None:
-            return r
-        if complete or K >= _K_CAP:
-            return None
-        k_min = K * 4
-
-
-def _n_above(out_np: dict, n_el: int) -> int:
-    aq = np.abs(out_np["q"][:n_el].astype(np.float64)
-                - out_np["mean"][:n_el].astype(np.float64))
-    return int(np.count_nonzero(aq > Params.sync_threshold2 * 0.75))
+    # reduced sync geometries overflow the default top-K with
+    # above-threshold candidates: _slot_search escalates K
+    return _slot_search(
+        lambda K: searcher(x, n_channels, K, n_starts_true, true_frames,
+                           sil_first, sil_last, 0, n_starts_s),
+        lambda out, K, complete: _select_from_fused(
+            key, {k: v.cpu().numpy() for k, v in out.items()}, K, clip,
+            complete),
+        T, tables.frames_per_block, n_starts_s)
 
 
 def _search_fused_tiled(key: Key, wav_data, tables, x_full: torch.Tensor,
@@ -359,48 +375,50 @@ def _search_fused_tiled(key: Key, wav_data, tables, x_full: torch.Tensor,
             x = torch.cat([x, x.new_zeros(tile_vals - seg_vals)])
         args = (x, C, n_valid, true_frames - f0 * frame, 0, seg_vals,
                 core_lo, core_hi)
-        K, complete = _fused_k_for(T_tile, tables.frames_per_block,
-                                   core_hi - core_lo)
-        out = _launch(searcher, args, K)
-        tiles.append((g0, f0, args, K, complete, out))
+        n_core = core_hi - core_lo
+        K = _fused_k_for(T_tile, tables.frames_per_block, n_core)[0]
+        tiles.append((g0, f0, args, n_core, _launch(searcher, args, K)))
         g_core_lo = g0 + core_hi
 
-    # ---- read in launch order; escalate saturated tiles ----
-    cand = {k: [] for k in ("t", "q", "mean", "rpos", "rq")}
-    for g0, f0, args, K, complete, out in tiles:
-        while True:
-            out_np = {k: v.cpu().numpy() for k, v in out.items()}
-            n_el = int(np.count_nonzero(out_np["eligible"]))
-            if not (n_el == K and _n_above(out_np, n_el) == K
-                    and not complete):
-                break
-            if K >= _K_CAP:
-                return None     # saturated tile at the cap: staged search
-            core_lo, core_hi = args[-2:]
-            K, complete = _fused_k_for(T_tile, tables.frames_per_block,
-                                       core_hi - core_lo, K * 4)
-            out = _launch(searcher, args, K)
-        cand["t"].append(out_np["t"][:n_el].astype(np.int64) + g0)
-        cand["q"].append(out_np["q"][:n_el].astype(np.float64))
-        cand["mean"].append(out_np["mean"][:n_el].astype(np.float64))
-        cand["rpos"].append(out_np["refined_pos"][:n_el].astype(np.int64)
-                            + f0 * frame)
-        cand["rq"].append(out_np["refined_q"][:n_el].astype(np.float64))
+    # ---- read in launch order; a saturated tile escalates on its own ----
+    cand = []
+    for g0, f0, args, n_core, out in tiles:
+        c = _slot_search(
+            lambda K: _launch(searcher, args, K),
+            lambda out, K, complete: _tile_slots(out, K, complete, g0,
+                                                 f0 * frame),
+            T_tile, tables.frames_per_block, n_core, out)
+        if c is None:
+            return None     # saturated tile at the cap: staged search
+        cand.append(c)
 
     # ---- merged CLI-exact selection: each tile's slots are quality-
     # descending, but the host selection breaks quality ties by approx step
     # order, so sort the merged slots by global step first (cores are
     # disjoint, so steps are unique across tiles) ----
-    order = np.argsort(np.concatenate(cand["t"]), kind="stable")
-    q = np.concatenate(cand["q"])[order]
-    mean = np.concatenate(cand["mean"])[order]
-    rpos = np.concatenate(cand["rpos"])[order]
-    rq = np.concatenate(cand["rq"])[order]
+    t, q, mean, rpos, rq = (np.concatenate(c) for c in zip(*cand))
+    order = np.argsort(t, kind="stable")
+    q, mean, rpos, rq = q[order], mean[order], rpos[order], rq[order]
     sel = _threshold_n_best_order(np.abs(q - mean),
                                   Params.sync_threshold2 * 0.75)
     keep = [_SearchScore(index=int(rpos[i]), raw_quality=float(rq[i]),
                          local_mean=float(mean[i])) for i in sel]
     return _finalize_scores(key, keep)
+
+
+def _tile_slots(out: dict, K: int, complete: bool, g0: int, v0: int):
+    """A tile's eligible slots read back: steps (+ g0) and refined
+    positions (+ v0) on the stream's axes, q, mean and refined q; None
+    when they are saturated."""
+    out_np = {k: v.cpu().numpy() for k, v in out.items()}
+    n_el = int(np.count_nonzero(out_np["eligible"]))
+    q = out_np["q"][:n_el].astype(np.float64)
+    mean = out_np["mean"][:n_el].astype(np.float64)
+    if _saturated(np.abs(q - mean), K, complete):
+        return None
+    return (out_np["t"][:n_el].astype(np.int64) + g0, q, mean,
+            out_np["refined_pos"][:n_el].astype(np.int64) + v0,
+            out_np["refined_q"][:n_el].astype(np.float64))
 
 
 def _launch(searcher, args, K: int) -> dict:
@@ -500,19 +518,15 @@ def search_block_group(key_list: List[Key], wav_list,
             sil_last[i] = wav.samples.size
 
         group = search_fused.build_searcher_group(tables, False, devices)
-        k_min = 0
-        while True:
-            K, complete = _fused_k_for(T, total, n_starts_s, k_min)
-            out_np = group.fetch(group(xs, n_channels, K, n_starts, frames,
-                                       zeros, sil_last, zeros,
-                                       [n_starts_s] * B))
-            key_rs = _select_rows(key, out_np, n_starts[:len(wav_list)], K,
-                                  False, complete)
-            if key_rs is not None:
-                break
-            if complete or K >= _K_CAP:
-                return None
-            k_min = K * 4               # a saturated chunk: escalate K
+        key_rs = _slot_search(
+            lambda K: group(xs, n_channels, K, n_starts, frames, zeros,
+                            sil_last, zeros, [n_starts_s] * B),
+            lambda out, K, complete: _select_rows(
+                key, group.fetch(out), n_starts[:len(wav_list)], K, False,
+                complete),
+            T, total, n_starts_s)
+        if key_rs is None:
+            return None
         for i, r in enumerate(key_rs):
             per_chunk[i].append(r)
     return per_chunk
@@ -555,28 +569,22 @@ def search_clip_pair_launch(key_list: List[Key], wav_list,
                     [s // C for s in sizes],
                     [a for a, _ in sil], [b for _, b in sil],
                     [0] * B, [n_starts_s] * B)
-            K, complete = _fused_k_for(T, tables.frames_per_block,
-                                       n_starts_s)
+            K = _fused_k_for(T, tables.frames_per_block, n_starts_s)[0]
             group = search_fused.build_searcher_group(tables, True, [dev])
             out = group(xs, C, K, *args)         # enqueued, not read
-            pending.append((key, tables, group, n_starts_s, args, K,
-                            complete, out))
+            pending.append((key, tables, group, n_starts_s, args, out))
 
     def finish() -> Optional[List[List[KeyResult]]]:
         with prof.phase("get.search_clip"):
             per_window: List[List[KeyResult]] = [[] for _ in wav_list]
-            for key, tables, group, n_starts_s, args, K, complete, out \
-                    in pending:
-                while True:
-                    key_rs = _select_rows(key, group.fetch(out), args[0], K,
-                                          True, complete)
-                    if key_rs is not None:
-                        break
-                    if complete or K >= _K_CAP:
-                        return None
-                    K, complete = _fused_k_for(T, tables.frames_per_block,
-                                               n_starts_s, K * 4)
-                    out = group(xs, C, K, *args)
+            for key, tables, group, n_starts_s, args, out in pending:
+                key_rs = _slot_search(
+                    lambda K: group(xs, C, K, *args),
+                    lambda out, K, complete: _select_rows(
+                        key, group.fetch(out), args[0], K, True, complete),
+                    T, tables.frames_per_block, n_starts_s, out)
+                if key_rs is None:
+                    return None
                 for i, r in enumerate(key_rs):
                     per_window[i].append(r)
             return per_window

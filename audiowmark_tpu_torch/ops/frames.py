@@ -13,8 +13,9 @@ the keyed bins -> irfft -> 3-frame overlap-add -> mix -> limiter -> int16
 trunc-clip, in one pass over the whole file (the delta's FFTs in calls of
 DELTA_FRAMES frames, as on every add path).  `embed_delta_frames` is the
 streaming add's tile step: the same delta and overlap-add, with the last
-two iffts carried on the device from tile to tile.  FFTW's unnormalized
-c2r is matched as irfft * FRAME.
+two iffts carried on the device from tile to tile.  `overlap_add` is the
+one 3-frame overlap-add of every add path, the sharded batch embed's
+included.  FFTW's unnormalized c2r is matched as irfft * FRAME.
 """
 
 from __future__ import annotations
@@ -119,6 +120,17 @@ def _delta_iffts(frames: torch.Tensor, mods: torch.Tensor,
     return out[:n]
 
 
+def overlap_add(ext: torch.Tensor, swin: torch.Tensor) -> torch.Tensor:
+    """The synthesis's 3-frame overlap-add: ext (..., T + 2, C, FRAME),
+    the delta iffts of T frames with the one before them and the one after
+    them stacked along the frame axis -> the (..., T, C, FRAME) output
+    frames out[j] = W0*D[j+1] + W1*D[j] + W2*D[j-1], W0, W1, W2 the thirds
+    of the synthesis window `swin`."""
+    return ext[..., 2:, :, :] * swin[:FRAME] \
+        + ext[..., 1:-1, :, :] * swin[FRAME:2 * FRAME] \
+        + ext[..., :-2, :, :] * swin[2 * FRAME:]
+
+
 def window_tensors(device: torch.device):
     """The analysis and synthesis windows as tensors on `device`, made
     once per device; callers must not write to them."""
@@ -143,8 +155,7 @@ def embed_delta_frames(frames, mods, water_delta: float, prev1=None,
     mods: (T, N_BINS) int8; prev1/prev2: (C, FRAME) iffts of frames k0-1
     and k0-2 (the carry; None at the stream start means zeros).
     Emits the overlap-add output frames j = k0-1 .. k0+T-2, one per input
-    frame (the synth's one-frame latency):
-        out[j] = W0*D[j+1] + W1*D[j] + W2*D[j-1]
+    frame (the synth's one-frame latency).
     Returns (out (T, C, FRAME), new prev1, new prev2)."""
     dev = resolve(device)
     frames = torch.as_tensor(frames, dtype=torch.float32, device=dev)
@@ -157,9 +168,7 @@ def embed_delta_frames(frames, mods, water_delta: float, prev1=None,
         else torch.as_tensor(prev2, device=dev)
     iffts = _delta_iffts(frames, mods, water_delta, awin)
     ext = torch.cat([prev2[None], prev1[None], iffts], dim=0)
-    out = ext[2:] * swin[:FRAME] + ext[1:-1] * swin[FRAME:2 * FRAME] \
-        + ext[:-2] * swin[2 * FRAME:]
-    return out, iffts[-1], ext[-2]
+    return overlap_add(ext, swin), iffts[-1], ext[-2]
 
 
 def add_file_core(x: torch.Tensor, mods: torch.Tensor, water_delta: float,
@@ -180,15 +189,10 @@ def add_file_core(x: torch.Tensor, mods: torch.Tensor, water_delta: float,
     frames = x.reshape(n_frames, FRAME, n_channels).transpose(1, 2)
     iffts = _delta_iffts(frames, mods, water_delta, awin)
 
-    # streamed alignment: delta frame j = D[j+1]*w0 + D[j]*w1 + D[j-1]*w2
-    # (one-frame synth latency, first emitted frame dropped)
-    w0 = swin[:FRAME]
-    w1 = swin[FRAME:2 * FRAME]
-    w2 = swin[2 * FRAME:]
+    # streamed alignment (one-frame synth latency, first emitted frame
+    # dropped): zero frames before the first and after the last
     zero = iffts.new_zeros((1, n_channels, FRAME))
-    nxt = torch.cat([iffts[1:], zero], dim=0)
-    prv = torch.cat([zero, iffts[:-1]], dim=0)
-    delta = nxt * w0 + iffts * w1 + prv * w2
+    delta = overlap_add(torch.cat([zero, iffts, zero], dim=0), swin)
 
     mixed = x + delta.transpose(1, 2).reshape(-1)
     if not no_limiter:

@@ -6,7 +6,8 @@ from ceiling/max(M[b-1], M[b]) to ceiling/max(M[b], M[b+1]), where
 M[b] = max(|x| over block b, ceiling); one block of latency.
 
 `limit_blocks` is the whole-signal form on the device (the whole-file
-add's), and `limiter_apply` the JAX package's host interface to it.
+add's, and over a batch of streams `watermark_batch`'s), and
+`limiter_apply` the JAX package's host interface to it.
 `DeviceStreamingLimiter` is the streaming add's: the reference's block
 protocol with its state on the device, equal bit for bit to
 `StreamingLimiter`, the plain numpy form, which carries the same state on
@@ -23,17 +24,20 @@ from ..device import DeviceLike, resolve
 
 def limit_blocks(mixed: torch.Tensor, ceiling: torch.Tensor,
                  block_size: int, n_channels: int) -> torch.Tensor:
-    """Whole-signal look-ahead limiter over interleaved samples (f32, any
-    length; the last block is zero-padded and the padding cut off), with
-    `ceiling` a 0-d f32 tensor on their device."""
+    """Whole-signal look-ahead limiter over interleaved samples (..., n)
+    f32, each row limited on its own (any length; the last block is
+    zero-padded and the padding cut off), with `ceiling` a 0-d f32 tensor
+    on their device."""
     vpb = block_size * n_channels
-    n = mixed.shape[0]
+    lead, n = mixed.shape[:-1], mixed.shape[-1]
     n_blocks = -(-n // vpb)
-    mb = torch.cat([mixed, mixed.new_zeros(n_blocks * vpb - n)])
-    xb = mb.reshape(n_blocks, vpb)
-    maxes = torch.maximum(torch.amax(torch.abs(xb), dim=1), ceiling)
-    prev = torch.cat([ceiling[None], maxes[:-1]])
-    nxt = torch.cat([maxes[1:], ceiling[None]])
+    mb = torch.cat([mixed, mixed.new_zeros(lead + (n_blocks * vpb - n,))],
+                   dim=-1)
+    xb = mb.reshape(lead + (n_blocks, vpb))
+    maxes = torch.maximum(torch.amax(torch.abs(xb), dim=-1), ceiling)
+    edge = ceiling.expand(lead + (1,))
+    prev = torch.cat([edge, maxes[..., :-1]], dim=-1)
+    nxt = torch.cat([maxes[..., 1:], edge], dim=-1)
     s0 = ceiling / torch.maximum(prev, maxes)
     s1 = ceiling / torch.maximum(maxes, nxt)
     # the gain ramp as the JAX package's jitted limiter rounds it: XLA
@@ -42,11 +46,10 @@ def limit_blocks(mixed: torch.Tensor, ceiling: torch.Tensor,
     # once (i*step is exact in float64)
     step = (s1 - s0) * (torch.ones((), device=mixed.device) / block_size)
     i = torch.arange(block_size, dtype=torch.float64, device=mixed.device)
-    scale = (s0.double()[:, None] + i[None, :] * step.double()[:, None]) \
-        .float()
-    out = (xb.reshape(n_blocks, block_size, n_channels)
-           * scale[:, :, None]).reshape(-1)
-    return out[:n]
+    scale = (s0.double()[..., None] + i * step.double()[..., None]).float()
+    out = xb.reshape(lead + (n_blocks, block_size, n_channels)) \
+        * scale[..., None]
+    return out.reshape(lead + (n_blocks * vpb,))[..., :n]
 
 
 def limiter_apply(samples: np.ndarray, n_channels: int, sample_rate: int,

@@ -153,6 +153,15 @@ def viterbi_acs(bm: torch.Tensor):
     return outs
 
 
+def bound_ms(batch: int, steps: int) -> float:
+    """The least time K1's bytes take on an H100 SXM (3.35 TB/s, NVIDIA's
+    data sheet): bm read once, the packed decisions, metrics and bits
+    written once."""
+    per_row = (steps * STATE_COUNT * 4 + steps * WORDS * 4
+               + STATE_COUNT * 4 + steps * 4)
+    return batch * per_row / 3.35e12 * 1e3
+
+
 def outputs(bm: torch.Tensor):
     """Empty (packed decisions, metrics, bits) for branch metrics `bm`."""
     B, steps, _ = bm.shape

@@ -2,7 +2,7 @@
 
 Port of audiowmark_tpu/parallel/batch.py: `watermark_batch` embeds one
 message into a batch of equal-length streams through the (dp, sp)-sharded
-embed of parallel/mesh.py and a limiter vectorised over the batch;
+embed of parallel/mesh.py and the whole-file add's limiter, row by row;
 `detect_batch` runs the fleet detector (ops/detect_fused.py) over a batch,
 split over the mesh's devices with one detector each.  Streams are
 independent, so throughput scales with the number of cards.  numpy in,
@@ -22,35 +22,11 @@ from ..device import DeviceLike
 from ..models.common import build_ab_frame_mods, parse_payload
 from ..ops.detect_fused import DetectorConfig, build_detector
 from ..ops.frames import FRAME
+from ..ops.limiter import limit_blocks
 from ..params import Params
 from ..tables import get_key_tables
 from ..utils import prof
 from .mesh import Mesh, batch_embed_sharded, make_mesh
-
-
-def _limiter_body(x: torch.Tensor,
-                  block_size: int = Params.mark_sample_rate,
-                  ceiling: float = Params.limiter_ceiling) -> torch.Tensor:
-    """Look-ahead limiter vectorised over (B, n_samples, C); the trailing
-    partial block is zero-padded through, as the streamed reference does
-    (src/limiter.cc)."""
-    B, n, C = x.shape
-    nb = -(-n // block_size)
-    pad = nb * block_size - n
-    if pad:
-        x = torch.cat([x, x.new_zeros((B, pad, C))], dim=1)
-    xb = x.reshape(B, nb, block_size * C)
-    ceil = x.new_full((B, 1), ceiling)
-    maxes = torch.clamp_min(torch.amax(torch.abs(xb), dim=2), ceiling)
-    prev = torch.cat([ceil, maxes[:, :-1]], dim=1)
-    nxt = torch.cat([maxes[:, 1:], ceil], dim=1)
-    s0 = ceiling / torch.maximum(prev, maxes)
-    s1 = ceiling / torch.maximum(maxes, nxt)
-    ramp = torch.arange(block_size, dtype=torch.float32,
-                        device=x.device) / block_size
-    scale = s0[:, :, None] + ramp[None, None, :] * (s1 - s0)[:, :, None]
-    out = xb.reshape(B, nb, block_size, C) * scale[..., None]
-    return out.reshape(B, nb * block_size, C)[:, :n]
 
 
 def watermark_batch(key: Key, audio: np.ndarray, message_hex: str,
@@ -92,7 +68,12 @@ def watermark_batch(key: Key, audio: np.ndarray, message_hex: str,
         tail = torch.from_numpy(audio[:, T * FRAME:]).to(x.device)
         x = torch.cat([x, tail], dim=1)
     if apply_limiter:
-        x = _limiter_body(x)
+        block_size = Params.mark_sample_rate \
+            * int(Params.limiter_block_size_ms) // 1000
+        ceiling = torch.tensor(Params.limiter_ceiling, dtype=torch.float32,
+                               device=x.device)
+        x = limit_blocks(x.reshape(B, -1), ceiling, block_size,
+                         C).reshape(B, -1, C)
     return x.cpu().numpy()
 
 

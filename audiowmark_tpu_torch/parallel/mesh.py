@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, card_count, spread
-from ..ops.frames import FRAME, _delta_iffts, window_tensors
+from ..ops.frames import FRAME, _delta_iffts, overlap_add, window_tensors
 
 
 @dataclass
@@ -70,19 +70,6 @@ def make_mesh(n_devices: int = 0, dp: int = 0,
     return Mesh(_device_array(devs).reshape(dp, n // dp))
 
 
-def _embed_shard(frames: torch.Tensor, iffts: torch.Tensor,
-                 right: torch.Tensor, left: torch.Tensor,
-                 swin: torch.Tensor) -> torch.Tensor:
-    """One shard's overlap-add: frames and their delta iffts (b, t, C,
-    FRAME), `right` the left neighbour's last ifft frame and `left` the
-    right neighbour's first, (b, C, FRAME) each, zero at the stream's two
-    ends (no wrap-around)."""
-    prv = torch.cat([right[:, None], iffts[:, :-1]], dim=1)
-    nxt = torch.cat([iffts[:, 1:], left[:, None]], dim=1)
-    return frames + (nxt * swin[:FRAME] + iffts * swin[FRAME:2 * FRAME]
-                     + prv * swin[2 * FRAME:])
-
-
 def batch_embed_sharded(mesh: Mesh, samples, mods,
                         water_delta: float) -> torch.Tensor:
     """dp/sp-sharded batch embed: frames `samples` (B, T, C, FRAME) f32 and
@@ -119,12 +106,15 @@ def batch_embed_sharded(mesh: Mesh, samples, mods,
         row = []
         for j in range(sp):
             f, iffts = shards[i, j]
-            zero = iffts.new_zeros((b, C, FRAME))
-            right = shards[i, j - 1][1][:, -1].to(iffts.device) \
+            # the left neighbour's last ifft frame and the right one's
+            # first, zero at the stream's two ends (no wrap-around)
+            zero = iffts.new_zeros((b, 1, C, FRAME))
+            before = shards[i, j - 1][1][:, -1:].to(iffts.device) \
                 if j > 0 else zero
-            left = shards[i, j + 1][1][:, 0].to(iffts.device) \
+            after = shards[i, j + 1][1][:, :1].to(iffts.device) \
                 if j < sp - 1 else zero
+            ext = torch.cat([before, iffts, after], dim=1)
             swin = window_tensors(iffts.device)[1]
-            row.append(_embed_shard(f, iffts, right, left, swin).to(out_dev))
+            row.append((f + overlap_add(ext, swin)).to(out_dev))
         rows.append(torch.cat(row, dim=1))
     return torch.cat(rows, dim=0)

@@ -364,7 +364,6 @@ def k1_check_bm(bm, nan_row=False):
     Returns the check's numbers: ms and plain ms by CUDA events, the bound
     (bytes at 3.35 TB/s) and its share, the cluster size."""
     from audiowmark_tpu_torch.fixtures import acs_equal
-    from audiowmark_tpu_torch.k1_bench import bound_ms
     from audiowmark_tpu_torch.ops import viterbi
     batch, steps = bm.shape[:2]
     got = viterbi.viterbi_acs(bm)
@@ -381,7 +380,7 @@ def k1_check_bm(bm, nan_row=False):
     with torch.cuda.device(bm.device):       # the events on bm's card
         ms = cuda_ms(lambda: viterbi.viterbi_acs(bm), 20)
         plain_ms = cuda_ms(lambda: viterbi.viterbi_acs_plain(bm), 3)
-    bound = bound_ms(batch, steps)
+    bound = viterbi.bound_ms(batch, steps)
     return dict(batch=batch, steps=steps, max_abs_err=max_abs_err,
                 nan_metrics=n_nan, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 share=bound / ms, cluster=viterbi.cluster_size(

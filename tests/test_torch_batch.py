@@ -4,8 +4,10 @@ its 8 host devices at a (2, 4) mesh.
 Mini geometry (short-12 payload, 10 sync frames per bit, T = 1200 frames,
 4 stereo streams of seeded numpy noise).
 
-* _limiter_body: vs the JAX package's on a batch with loud blocks and a
-  trailing partial block, atol 1e-6 (one multiply by a gain <= 1);
+* ops/limiter.limit_blocks on a batch (watermark_batch's limiter) vs
+  jax.jit of the JAX package's batch limiter on loud blocks and a trailing
+  partial block: within 1 ulp and atol 1e-6, at most the counted samples
+  apart; each row of a batch equal bit for bit to the row alone;
 * watermark_batch: vs the JAX package's with the limiter on and off, with
   and without a tail past the last whole frame, atol 1e-5; a (2, 4) mesh
   of logical shards gives what one device gives, 0 apart;
@@ -15,6 +17,7 @@ Mini geometry (short-12 payload, 10 sync frames per bit, T = 1200 frames,
 * without a card and without device="cpu" both raise.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +33,7 @@ from audiowmark_tpu.params import Params as JParams
 from audiowmark_tpu_torch import tables as t_tables
 from audiowmark_tpu_torch.crypto.keys import Key as TKey
 from audiowmark_tpu_torch.ops.frames import FRAME
+from audiowmark_tpu_torch.ops.limiter import limit_blocks
 from audiowmark_tpu_torch.parallel import batch as t_batch
 from audiowmark_tpu_torch.parallel.mesh import make_mesh
 from audiowmark_tpu_torch.params import Params as TParams
@@ -72,28 +76,45 @@ def marked():
                                    mesh=make_mesh(8, dp=2, device="cpu"))
 
 
-@pytest.mark.parametrize("n,block", [(10000, 4410), (8820, 4410), (300, 441)])
-def test_limiter_body_matches_jax(n, block):
+def _loud(n, rows=3):
+    """Seeded stereo rows (rows, n, C) with loud blocks in row 1: gains
+    well below 1."""
     rng = np.random.RandomState(n)
-    x = (rng.rand(3, n, C).astype(np.float32) - 0.5) * 1.6
-    x[1, n // 2:] *= 2.0                   # loud blocks: gains well below 1
-    want = np.asarray(j_batch._limiter_body(jnp.asarray(x), block, 0.99))
-    got = t_batch._limiter_body(torch.from_numpy(x), block, 0.99).numpy()
+    x = (rng.rand(rows, n, C).astype(np.float32) - 0.5) * 1.6
+    x[1, n // 2:] *= 2.0
+    return x
+
+
+# samples apart from the JAX package's jitted batch limiter: 613, 522 and
+# 0 of 60000, 52920 and 1800 on the CPU (its ramp is s0 + (i/bs)*(s1 - s0),
+# the port's the whole-file add's s0 + i*((s1 - s0)*(1/bs)), each fused
+# and rounded once); the bound leaves 5 % above the count
+@pytest.mark.parametrize("n,block,apart", [(10000, 4410, 644),
+                                           (8820, 4410, 548),
+                                           (300, 441, 0)])
+def test_limit_blocks_on_a_batch_matches_jax(n, block, apart):
+    x = _loud(n)
+    jitted = jax.jit(j_batch._limiter_body, static_argnums=(1, 2))
+    want = np.asarray(jitted(jnp.asarray(x), block, 0.99))
+    got = limit_blocks(torch.from_numpy(x).reshape(3, -1), torch.tensor(0.99),
+                       block, C).reshape(x.shape).numpy()
     assert got.shape == want.shape == x.shape
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+    # a gain 1 ulp apart moves a sample by at most 2 of its ulps
+    ulps = np.abs(got.view(np.int32).astype(np.int64)
+                  - want.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 2
+    assert np.count_nonzero(got != want) <= apart
     assert np.abs(got).max() <= 0.99 + 1e-6 < np.abs(x).max()
 
 
-def test_limiter_body_equals_the_whole_file_limiter():
-    """One stream through the batch limiter = ops/limiter.limit_blocks,
-    the whole-file add's limiter."""
-    from audiowmark_tpu_torch.ops.limiter import limit_blocks
-    rng = np.random.RandomState(2)
-    x = torch.from_numpy((rng.rand(1, 10000, C).astype(np.float32) - 0.5)
-                         * 3.0)
-    want = limit_blocks(x.reshape(-1), torch.tensor(0.99), 4410, C)
-    got = t_batch._limiter_body(x, 4410, 0.99).reshape(-1)
-    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
+def test_limit_blocks_limits_each_row_on_its_own():
+    """Each row of a batch = limit_blocks on that row alone, bit for bit."""
+    x = torch.from_numpy(_loud(10000) * 1.5).reshape(3, -1)
+    got = limit_blocks(x, torch.tensor(0.99), 4410, C)
+    for row in range(3):
+        alone = limit_blocks(x[row], torch.tensor(0.99), 4410, C)
+        assert torch.equal(got[row], alone), row
 
 
 @pytest.mark.parametrize("limiter,tail,gain", [(True, 0, 0.6),

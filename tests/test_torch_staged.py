@@ -13,6 +13,11 @@ package holds blocks A, B, A.
   tests/test_search_fused.py:38), on the same spectrogram.
 * searches: positions, indices and block types exact; qualities within
   rtol 2e-4, atol 2e-5.
+* the fused search's slot loop at its four callers (the whole-stream and
+  tiled search, the chunk group, the clip pair), forced to saturate (8
+  slots, a low threshold): escalated, each gives what the staged,
+  per-chunk or per-window search gives; saturated at _K_CAP, each takes
+  its fallback.
 
 Each package reads its own Params (the same geometry is set on both) and
 gets its own Key and WavData of the same samples.
@@ -226,3 +231,92 @@ def test_fused_search_takes_a_partial_frame_after_a_bucket():
     assert fused[0].sync_scores
     _assert_same(fused, tsf.search_staged([TKey()], wav, tsf.SyncMode.BLOCK,
                                           "cpu"))
+
+
+# a slot policy that saturates: 8 slots at first, and a threshold that
+# 16 of the marked file's candidates pass (|q - mean| > 0.75 * 0.32; the
+# next are ~0.24 and below), so 8 slots are saturated and 32 are not
+SATURATING_THRESHOLD2 = 0.32
+
+
+def _chunks(marked):
+    """Two chunks of unequal length, as a long file's are."""
+    return [marked, marked.with_samples(marked.samples[2 * 7001:
+                                                       60 * 44100 * 2])]
+
+
+def _windows(marked):
+    """The clip decoder's padded start and end windows."""
+    dec = ClipDecoder(1)
+    return [WavData(w.samples, w.n_channels, w.sample_rate, w.bit_depth)
+            for w in (dec._build_window([JKey()], _jwav(marked), pos)[0]
+                      for pos in ("start", "end"))]
+
+
+def _site(site, marked):
+    """(the site's search, what it must equal) on the marked file: the
+    whole-stream and the tiled search against the staged one, the chunk
+    group against the per-chunk search, the clip pair against the
+    per-window search."""
+    block, clip = tsf.SyncMode.BLOCK, tsf.SyncMode.CLIP
+    if site in ("one", "tiled"):
+        return (lambda: tsf.search([TKey()], marked, block, "cpu"),
+                lambda: tsf.search_staged([TKey()], marked, block, "cpu"))
+    if site == "group":
+        wavs = _chunks(marked)
+        return (lambda: tsf.search_block_group([TKey()], wavs, "cpu"),
+                lambda: [tsf.search([TKey()], w, block, "cpu")
+                         for w in wavs])
+    wavs = _windows(marked)
+    return (lambda: tsf.search_clip_pair([TKey()], wavs, "cpu"),
+            lambda: [tsf.search([TKey()], w, clip, "cpu") for w in wavs])
+
+
+@pytest.mark.parametrize("site", ["one", "tiled", "group", "pair"])
+def test_saturated_slots_escalate_and_fall_back(marked, site, monkeypatch):
+    """Each of the fused search's four callers through its slot loop:
+    saturated slots searched again at 4x K give what the reference gives;
+    saturated at _K_CAP, the caller's fallback runs (the staged search;
+    None, which sends the caller to the per-chunk or per-window search)."""
+    monkeypatch.setattr(tsf.search_fused, "top_k_for", lambda T, fpb: 8)
+    TParams.sync_threshold2 = SATURATING_THRESHOLD2
+    if site == "tiled":
+        monkeypatch.setattr(tsf.search_fused, "MAX_FUSED_FRAMES", 2560)
+        launches = []
+        real_launch = tsf._launch
+        monkeypatch.setattr(tsf, "_launch", lambda *a: launches.append(a[2])
+                            or real_launch(*a))
+    ks = []
+    real_k_for = tsf._fused_k_for
+    monkeypatch.setattr(tsf, "_fused_k_for",
+                        lambda *a: ks.append(real_k_for(*a)[0])
+                        or real_k_for(*a))
+    run, reference = _site(site, marked)
+    got = run()
+    assert ks[0] == 8 and 32 in ks, ks           # escalated from 8 slots
+    if site == "tiled":
+        assert launches.count(8) == 2 and 32 in launches   # 2 tiles
+    want = reference()
+    if site in ("one", "tiled"):
+        _assert_same(got, want)
+        assert len(got[0].sync_scores) > 3
+    else:
+        assert len(got) == len(want) == 2
+        assert all(g[0].sync_scores for g in got)
+        for g, w in zip(got, want):
+            assert [[(s.index, s.block_type.name, s.quality)
+                     for s in kr.sync_scores] for kr in g] \
+                == [[(s.index, s.block_type.name, s.quality)
+                     for s in kr.sync_scores] for kr in w]
+
+    monkeypatch.setattr(tsf, "_K_CAP", 8)
+    staged = []
+    real_staged = tsf.search_staged
+    monkeypatch.setattr(tsf, "search_staged",
+                        lambda *a: staged.append(a) or real_staged(*a))
+    got = run()
+    if site in ("one", "tiled"):
+        assert len(staged) == 1
+        _assert_same(got, want)
+    else:
+        assert got is None and not staged
